@@ -1,0 +1,507 @@
+"""Host feed packer: one int32 buffer plus a layout per picture (numpy).
+
+A copy of the numpy packer of ``libde265_tpu/fused_decode.py`` (the
+``use_pallas_mc=False`` branches of ``_pack_numpy``, ``_grow`` and
+``plan_stream``, with ``_bin_tus``, ``_intra_records_native``,
+``_pack_pcm`` and ``mc_pallas.pus_to_wire``), kept here so that the port
+never imports JAX.  For the same sequence of pictures it returns the same
+``(layout, buf)`` word for word as the JAX packer, capacity watermarks
+included; ``tests/test_torch_feed.py`` holds the two against each other.
+
+Cross-component prediction is not packed: the port's decoder refuses such
+pictures before packing (ROADMAP A2).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from libde265_tpu.decoder import TU_INTRA, TU_RDPCM, FrameProgramData
+
+MAX_REFS = 8
+NOREF = -(10 ** 6)
+
+# intra super-wave per-step capacities (blocks of size 1<<lg per scan step);
+# MUST match kWaveCap in native/src/intraplan.cc.
+WAVE_CAP = {2: 256, 3: 128, 4: 64, 5: 16}
+
+# irec columns (flat per-block intra record feed):
+#   0 mode, 1 edge, 2 y0, 3 x0, 4 flags(1 unavail|2 filt|4 strong|8 valid),
+#   5 rrow, 6 step, 7 slot, 8 cidx, 9 lg, 10..14 border-availability bitmask
+IREC_COLS = 15
+AVAIL_WORDS = 5  # ceil((4*32+1)/32) for the largest block size
+
+_PLANE_CLASS = {0: "y", 1: "cb", 2: "cr"}
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, int(n - 1).bit_length())
+
+
+def _bin_tus(prog: FrameProgramData):
+    """Vectorized size-binning of the TU records.
+
+    Returns ({lg: dict}, tu_bin_lg, tu_bin_row): per-bin TU arrays, the
+    CSR coefficient stream and the inter residual scatter targets.
+
+    Coefficient wire format: 8-bit entries, FOUR per int32 word
+    (little-endian byte order), positions delta-coded in raster order per
+    TU.  A running position P starts at -1; an entry with val!=0 advances P
+    by dpos+1 and emits level `val` (4-bit signed, clamped to +-7) at P; a
+    zero byte advances P by 15 and emits nothing.  |val|>7 escapes ship as
+    (cfx, cfv) corrections added after densification.  coff is in ENTRY
+    units (multiples of 4).
+    """
+    tus = prog.tus
+    bins = {}
+    tu_bin_lg = np.full(len(tus), -1, np.int32)
+    tu_bin_row = np.full(len(tus), -1, np.int32)
+    if len(tus) == 0:
+        return bins, tu_bin_lg, tu_bin_row
+
+    for lg in (2, 3, 4, 5):
+        sel = np.nonzero(tus["log2_size"] == lg)[0]
+        if len(sel) == 0:
+            continue
+        n = len(sel)
+        t = tus[sel]
+        tu_bin_lg[sel] = lg
+        tu_bin_row[sel] = np.arange(n)
+        S = 1 << lg
+        starts = t["coeff_start"].astype(np.int64)
+        ncs = t["ncoeff"].astype(np.int64)
+        total = int(ncs.sum())
+        if total:
+            off = np.concatenate([[0], np.cumsum(ncs)[:-1]])
+            runs = np.repeat(np.arange(n), ncs)
+            j_in = np.arange(total, dtype=np.int64) - np.repeat(off, ncs)
+            src = np.clip(np.repeat(starts, ncs) + j_in, 0,
+                          len(prog.coeff_val) - 1)
+            cval = prog.coeff_val[src].astype(np.int32)
+            cposw = prog.coeff_pos[src].astype(np.int32)
+            p10 = (cposw >> 6) * S + (cposw & 63)
+            # sort by position within each TU (positions unique per TU)
+            order = np.argsort(runs * (S * S) + p10, kind="stable")
+            runs, p10, cval = runs[order], p10[order], cval[order]
+            prev = np.empty(total, np.int64)
+            prev[1:] = p10[:-1]
+            prev[np.concatenate([[0], off[1:][ncs[1:] > 0]]).astype(
+                np.int64)] = -1
+            gaps = p10 - prev - 1
+            adv = gaps // 15                  # leading zero (advance) bytes
+            cnt_c = adv + 1                   # bytes per coefficient
+            ent_per_tu = np.zeros(n, np.int64)
+            np.add.at(ent_per_tu, runs, cnt_c)
+            coff = np.concatenate(
+                [[0], np.cumsum((ent_per_tu + 3) & ~3)]).astype(np.int32)
+            cum = np.cumsum(cnt_c)
+            cum0 = np.concatenate([[0], cum])
+            within_incl = cum - cum0[np.repeat(off, ncs)]
+            cl = np.clip(cval, -7, 7)
+            bytestream = np.zeros(int(coff[-1]), np.uint8)
+            bytestream[coff[runs] + within_incl - 1] = \
+                ((gaps - 15 * adv) & 0xF) | ((cl & 0xF) << 4)
+            cv = bytestream.view(np.int32)
+            esc = cval != cl
+            cfx = (runs[esc] * S * S + p10[esc]).astype(np.int32)
+            cfv = (cval - cl)[esc].astype(np.int32)
+        else:
+            coff = np.zeros(n + 1, np.int32)
+            cv = np.zeros(0, np.int32)
+            cfx = np.zeros(0, np.int32)
+            cfv = np.zeros(0, np.int32)
+        flags = t["flags"].astype(np.int32)
+        intra = (flags & TU_INTRA) != 0
+        cidx = t["cidx"].astype(np.int32)
+        if prog.scaling_factors is not None:
+            if lg == 5:
+                mid = np.where(intra, 0, 1)
+            else:
+                mid = cidx + np.where(intra, 0, 3)
+        else:
+            mid = np.zeros(n, np.int32)
+        b = {"qp": t["qp"].astype(np.int32), "flags": flags, "mid": mid,
+             "n": n, "cv": cv, "coff": coff, "cfx": cfx, "cfv": cfv}
+        # inter residual scatter targets per channel
+        inter_nz = ~intra & (t["ncoeff"] > 0)
+        for ch, m in (("y", inter_nz & (cidx == 0)),
+                      ("cb", inter_nz & (cidx == 1)),
+                      ("cr", inter_nz & (cidx == 2))):
+            rows = np.nonzero(m)[0].astype(np.int32)
+            b[f"sc_{ch}"] = np.stack(
+                [rows, t["x"][rows].astype(np.int32),
+                 t["y"][rows].astype(np.int32)], axis=1) if len(rows) else \
+                np.zeros((0, 3), np.int32)
+        bins[lg] = b
+    return bins, tu_bin_lg, tu_bin_row
+
+
+def _pack_irec(irec: np.ndarray) -> np.ndarray:
+    """Wire-compact intra records: [n, 15] int32 -> [8, n] column-major.
+
+    w0 = mode(6) | edge(4)<<6 | flags(4)<<10 | cidx(2)<<14 | lg(3)<<16 |
+         step(13)<<19;  w1 = y0(16) | x0(16)<<16;
+    w2 = (rrow+1)(22) | slot(10)<<22 (rrow rides +1: -1 = no residual);
+    w3..w7 = availability words."""
+    n = irec.shape[0]
+    p = np.zeros((8, n), np.int32)
+    p[0] = (irec[:, 0] | (irec[:, 1] << 6) | (irec[:, 4] << 10) |
+            (irec[:, 8] << 14) | (irec[:, 9] << 16) | (irec[:, 6] << 19))
+    p[1] = irec[:, 2] | (irec[:, 3] << 16)
+    p[2] = (irec[:, 5] + 1) | (irec[:, 7] << 22)
+    p[3:8] = irec[:, 10:15].T
+    return p
+
+
+def _avail_words(av: np.ndarray) -> np.ndarray:
+    """Pack a [n, nb] bool availability matrix into [n, AVAIL_WORDS] int32
+    (little-endian bit order, bit k of word k>>5 = sample k)."""
+    n, nb = av.shape
+    padded = np.zeros((n, AVAIL_WORDS * 32), bool)
+    padded[:, :nb] = av
+    return np.packbits(padded, axis=1, bitorder="little").view(np.int32)
+
+
+def _intra_records_native(prog: FrameProgramData):
+    """Flat intra record array from the native plan (intraplan.cc): per
+    block metadata plus border availability bits; the border positions
+    and the substitution chain are re-derived on the device."""
+    ip = prog.ip
+    recs = prog.intras
+    n = len(recs)
+    steps = ip["step"].astype(np.int32)
+    n_steps = int(steps.max(initial=-1)) + 1
+    irec = np.zeros((n, IREC_COLS), np.int32)
+    irec[:, 0] = recs["mode"]
+    irec[:, 1] = ip["edge"]
+    irec[:, 2] = recs["y"]
+    irec[:, 3] = recs["x"]
+    fl = ip["flags"].astype(np.int32) | 8
+    irec[:, 4] = fl
+    irec[:, 5] = ip["rrow"]
+    irec[:, 6] = steps
+    irec[:, 7] = ip["slot"]
+    irec[:, 8] = recs["cidx"]
+    lg_all = recs["log2_size"].astype(np.int32)
+    irec[:, 9] = lg_all
+    boff = ip["boff"].astype(np.int64)
+    bsub = ip["bsub"]
+    nsteps_pc = np.zeros(3, np.int32)
+    for c in (0, 1, 2):
+        m = recs["cidx"] == c
+        if m.any():
+            nsteps_pc[c] = int(steps[m].max()) + 1
+    for lg in (2, 3, 4, 5):
+        sel = np.nonzero(lg_all == lg)[0]
+        if not len(sel):
+            continue
+        nb = 4 * (1 << lg) + 1
+        bidx = boff[sel][:, None] + np.arange(nb)
+        # available <=> substitution maps the sample to itself (native sets
+        # bsub[k]=k also for all-unavailable blocks, so mask those out)
+        av = (bsub[bidx] == np.arange(nb)) & ((fl[sel] & 1) == 0)[:, None]
+        irec[sel, 10:10 + AVAIL_WORDS] = _avail_words(av)
+    return irec, n_steps, nsteps_pc
+
+
+def _intra_records(prog: FrameProgramData):
+    if len(prog.intras) == 0:
+        return np.zeros((0, IREC_COLS), np.int32), 0, np.zeros(3, np.int32)
+    if prog.ip is None:
+        raise ValueError(
+            "picture has intra blocks but no native intra plan (prog.ip)")
+    return _intra_records_native(prog)
+
+
+def _pack_pcm(prog: FrameProgramData, sub_x, sub_y):
+    """Flat (plane, index, value) PCM scatter lists (rare blocks)."""
+    if prog.pcms is None or len(prog.pcms) == 0:
+        return [np.zeros((0, 2), np.int32) for _ in range(3)]
+    sh_y = max(prog.bit_depth[0] - prog.pcm_bit_depth[0], 0)
+    sh_c = max((prog.bit_depth[1] if prog.chroma_width else 8) -
+               prog.pcm_bit_depth[1], 0)
+    data = prog.pcm_data.astype(np.int32)
+    out = [[], [], []]
+    for rec in prog.pcms:
+        s = 1 << int(rec["log2_size"])
+        p = int(rec["data_start"])
+        x, y0 = int(rec["x"]), int(rec["y"])
+        yy, xx = np.mgrid[y0:y0 + s, x:x + s]
+        out[0].append(np.stack([(yy * prog.width + xx).ravel(),
+                                data[p:p + s * s] << sh_y], axis=1))
+        p += s * s
+        if prog.chroma_width:
+            cw, chh = s // sub_x, s // sub_y
+            cx, cy = x // sub_x, y0 // sub_y
+            for c in (1, 2):
+                yy, xx = np.mgrid[cy:cy + chh, cx:cx + cw]
+                out[c].append(np.stack([(yy * prog.chroma_width + xx).ravel(),
+                                        data[p:p + cw * chh] << sh_c], axis=1))
+                p += cw * chh
+    return [np.concatenate(o).astype(np.int32) if o else
+            np.zeros((0, 2), np.int32) for o in out]
+
+
+def _pad_rows(a: np.ndarray, cap: int, fill=0) -> np.ndarray:
+    """Pad axis 0 to cap (>= len(a))."""
+    if len(a) == cap:
+        return np.ascontiguousarray(a)
+    pad = np.full((cap - len(a),) + a.shape[1:], fill, a.dtype)
+    return np.concatenate([a, pad])
+
+
+def pus_to_wire(pus: np.ndarray, slot_map=None):
+    """The 5-word wire PU SoA: mv0 (x|y<<16), mv1, meta (pf | slot0<<2 |
+    slot1<<8 | ridx0<<14 | ridx1<<18), slice, geo (x/4 | y/4<<11 |
+    (w/4-1)<<22 | (h/4-1)<<27)."""
+    n = len(pus)
+    pu = np.zeros((max(n, 1), 5), np.int32)
+    if not n:
+        return pu
+    p = pus
+    pu[:n, 0] = (p["mv0x"].astype(np.int32) & 0xFFFF) | \
+        (p["mv0y"].astype(np.int32) << 16)
+    pu[:n, 1] = (p["mv1x"].astype(np.int32) & 0xFFFF) | \
+        (p["mv1y"].astype(np.int32) << 16)
+    meta = p["pred_flags"].astype(np.int32) & 3
+    for l in (0, 1):
+        raw = p[f"ref_dpb{l}"].astype(np.int32)
+        if slot_map is not None:
+            slot = np.array([slot_map.get(int(v), 0) for v in raw], np.int32)
+        else:
+            slot = np.maximum(raw, 0)
+        meta |= (slot & 63) << (2 + 6 * l)
+        meta |= (np.maximum(p[f"ref_idx{l}"].astype(np.int32), 0)
+                 & 15) << (14 + 4 * l)
+    pu[:n, 2] = meta
+    pu[:n, 3] = p["slice"]
+    pu[:n, 4] = (p["x"].astype(np.int32) >> 2) | \
+        ((p["y"].astype(np.int32) >> 2) << 11) | \
+        (((p["w"].astype(np.int32) >> 2) - 1) << 22) | \
+        (((p["h"].astype(np.int32) >> 2) - 1) << 27)
+    return pu
+
+
+def has_ccp(prog: FrameProgramData) -> bool:
+    return bool(len(prog.tus) and (prog.tus["cross_comp_scale"] != 0).any())
+
+
+def has_rdpcm(prog: FrameProgramData) -> bool:
+    return bool(len(prog.tus) and ((prog.tus["flags"] & TU_RDPCM) != 0).any())
+
+
+def _multi_boundary(prog: FrameProgramData) -> bool:
+    srec = prog.slice_records
+    return bool((len(srec) > 1 and not np.all(srec[:, 9])) or
+                not prog.across_tiles)
+
+
+class FeedPacker:
+    """Capacity watermarks and the per-picture feed packer of one stream.
+
+    Every array of the feed is padded to a power-of-two watermark that only
+    grows, so the layout of a stream changes O(log) times.  The sticky
+    latches (use_l1, has_inter, multi) select the program variant, as in
+    the JAX decoder.
+    """
+
+    def __init__(self):
+        self.caps = {"pu": 1, "slices": 1, "steps": 0, "nintra": 0}
+        for lg in (2, 3, 4, 5):
+            self.caps[f"tu{lg}"] = 0
+            self.caps[f"co{lg}"] = 0
+            self.caps[f"cf{lg}"] = 0
+            for ch in ("y", "cb", "cr"):
+                self.caps[f"sc{lg}{ch}"] = 0
+        for c in range(3):
+            self.caps[f"pcm{c}"] = 0
+        self.intra_lgs = set()  # (plane_class, lg) seen
+        self.use_l1 = False
+        self.has_inter = False
+        self.multi = False
+
+    def grow(self, key, n):
+        if n > self.caps.get(key, 0):
+            self.caps[key] = _pow2(n)
+        return self.caps[key]
+
+    def _note_intra_lgs(self, prog):
+        for c, lg in set(zip(prog.intras["cidx"].tolist(),
+                             prog.intras["log2_size"].tolist())):
+            self.intra_lgs.add((_PLANE_CLASS[int(c)], int(lg)))
+
+    def _note_l1(self, prog):
+        self.use_l1 = self.use_l1 or (
+            bool((prog.pus["pred_flags"] & 2).any()) if len(prog.pus)
+            else False)
+
+    def plan_stream(self, progs):
+        """Pre-size every capacity from a list of pictures, so the whole
+        stream packs into one layout."""
+        for prog in progs:
+            if len(prog.ref_pocs) > MAX_REFS:
+                continue
+            bins, _, _ = _bin_tus(prog)
+            for lg, b in bins.items():
+                self.grow(f"tu{lg}", b["n"])
+                self.grow(f"co{lg}", len(b["cv"]))
+                self.grow(f"cf{lg}", len(b["cfx"]))
+                for ch in ("y", "cb", "cr"):
+                    self.grow(f"sc{lg}{ch}", len(b[f"sc_{ch}"]))
+            self.grow("pu", len(prog.pus))
+            self.grow("slices", len(prog.slice_records))
+            self._note_l1(prog)
+            self.has_inter = self.has_inter or len(prog.pus) > 0
+            self.multi = self.multi or _multi_boundary(prog)
+            _, n_steps, _ = _intra_records(prog)
+            if len(prog.intras):
+                self._note_intra_lgs(prog)
+            self.grow("steps", n_steps)
+            self.grow("nintra", len(prog.intras))
+            sub_x = prog.width // prog.chroma_width if prog.chroma_width \
+                else 1
+            sub_y = prog.height // prog.chroma_height if prog.chroma_height \
+                else 1
+            pcm = _pack_pcm(prog, sub_x, sub_y)
+            for c in range(3):
+                self.grow(f"pcm{c}", len(pcm[c]))
+
+    def pack(self, prog: FrameProgramData, slot_map):
+        """Returns (layout, buf, lgs, n_slices): layout is a tuple of
+        (name, offset, shape) into the int32 buffer buf."""
+        H, W = prog.height, prog.width
+        has_chroma = prog.chroma_width > 0
+        sub_x = W // prog.chroma_width if has_chroma else 1
+        sub_y = H // prog.chroma_height if has_chroma else 1
+
+        # --- PU SoA [Pcap, 5] ---
+        pcap = self.grow("pu", max(len(prog.pus), 1))
+        pu = np.zeros((pcap, 5), np.int32)
+        if len(prog.pus):
+            pw = pus_to_wire(prog.pus, slot_map)
+            pu[:pw.shape[0]] = pw
+
+        # --- TU bins ---
+        bins, _, _ = _bin_tus(prog)
+        host = {}
+        lgs = []
+        z0 = np.zeros(0, np.int32)
+        for lg in (2, 3, 4, 5):
+            if self.caps[f"tu{lg}"] == 0 and lg not in bins:
+                continue
+            b = bins.get(lg)
+            tcap = self.grow(f"tu{lg}", b["n"] if b else 1)
+            ccap = self.grow(f"co{lg}", len(b["cv"]) if b else 1)
+            lgs.append(lg)
+            # TU meta, two per word: qp7 (signed) | flags6<<7 | mid3<<13
+            tm16 = np.zeros(tcap + (tcap & 1), np.int32)
+            if b:
+                nb = len(b["qp"])
+                tm16[:nb] = (b["qp"] & 0x7F) | ((b["flags"] & 0x3F) << 7) \
+                    | ((b["mid"] & 7) << 13)
+            host[f"bin{lg}.tm"] = tm16[0::2] | (tm16[1::2] << 16)
+            host[f"bin{lg}.cv"] = _pad_rows(b["cv"] if b else z0, ccap)
+            coff = b["coff"] if b else np.zeros(1, np.int32)
+            host[f"bin{lg}.coff"] = _pad_rows(coff, tcap + 1,
+                                              fill=int(coff[-1]))
+            fcap = self.grow(f"cf{lg}", len(b["cfx"]) if b else 0)
+            if fcap:
+                host[f"bin{lg}.cfx"] = _pad_rows(
+                    b["cfx"] if b else z0, fcap, fill=-1)
+                host[f"bin{lg}.cfv"] = _pad_rows(b["cfv"] if b else z0,
+                                                 fcap)
+            for ch in ("y", "cb", "cr"):
+                sc = b[f"sc_{ch}"] if b else np.zeros((0, 3), np.int32)
+                cap = self.grow(f"sc{lg}{ch}", len(sc))
+                host[f"bin{lg}.sc_{ch}"] = _pad_rows(sc, cap, fill=-1)
+
+        # --- intra super-waves (flat records; scan layout built on device) ---
+        irec, n_steps, nsteps_pc = _intra_records(prog)
+        self.caps["steps"] = max(self.caps["steps"],
+                                 _pow2(n_steps) if n_steps else 0)
+        if len(prog.intras):
+            self._note_intra_lgs(prog)
+        host["nsteps"] = nsteps_pc
+        ncap = self.grow("nintra", max(len(irec), 1))
+        irecp = np.zeros((8, ncap), np.int32)
+        if len(irec):
+            irecp[:, :len(irec)] = _pack_irec(irec)
+        host["irecp"] = irecp
+
+        # intra residuals reference bin_res[lg]: make sure those bins exist
+        for (_, lg) in self.intra_lgs:
+            if lg not in lgs:
+                tcap = self.grow(f"tu{lg}", 1)
+                ccap = self.grow(f"co{lg}", 1)
+                lgs.append(lg)
+                host[f"bin{lg}.qp"] = _pad_rows(z0, tcap)
+                host[f"bin{lg}.flags"] = _pad_rows(z0, tcap)
+                host[f"bin{lg}.mid"] = _pad_rows(z0, tcap)
+                host[f"bin{lg}.cv"] = _pad_rows(z0, ccap)
+                host[f"bin{lg}.coff"] = np.zeros(tcap + 1, np.int32)
+                for ch in ("y", "cb", "cr"):
+                    cap = self.grow(f"sc{lg}{ch}", 0) or 0
+                    host[f"bin{lg}.sc_{ch}"] = _pad_rows(
+                        np.zeros((0, 3), np.int32), cap, fill=-1)
+        lgs = sorted(lgs)
+
+        # --- PCM ---
+        pcm = _pack_pcm(prog, sub_x, sub_y)
+        for c in range(3):
+            cap = self.grow(f"pcm{c}", len(pcm[c]))
+            host[f"pcm{c}"] = _pad_rows(pcm[c], cap, fill=1 << 30) if cap \
+                else np.zeros((0, 2), np.int32)
+
+        # --- grids + slice data ---
+        n_slices = self.grow("slices", max(len(prog.slice_records), 1))
+        recs = np.zeros((n_slices, 208), np.int32)
+        recs[:len(prog.slice_records)] = prog.slice_records
+        host["slice_recs"] = recs
+        host["pu"] = pu
+        host["ref_pocs"] = np.array(
+            [prog.ref_pocs[i] if i < len(prog.ref_pocs) else NOREF
+             for i in range(MAX_REFS)], np.int32)
+        host["mc_on"] = np.array([1 if len(prog.pus) else 0], np.int32)
+        # per-4x4 grids in one word: qp(8) | nzc(1) | dbf(4) | cu(4) |
+        # pu_idx+1 (15, 0 = uncovered); pu_idx spills to its own field
+        # only when the PU count exceeds 15 bits
+        g = (prog.qp_y.astype(np.int32) & 0xFF) | \
+            ((prog.nonzero_coeff.astype(np.int32) & 1) << 8) | \
+            ((prog.deblock_flags.astype(np.int32) & 0xF) << 9) | \
+            ((prog.cu_info.astype(np.int32) & 0xF) << 13)
+        if self.caps["pu"] < (1 << 15) - 1:
+            host["g4"] = g | ((prog.pu_idx.astype(np.int32) + 1) << 17)
+        else:
+            host["g4"] = g
+            host["pu_idx"] = prog.pu_idx.astype(np.int32)
+        host["slice_idx"] = prog.slice_idx.astype(np.int32)
+        host["slice_addr"] = prog.slice_addr.astype(np.int32)
+        host["tile_id"] = prog.tile_id.astype(np.int32)
+        sh = (prog.ctb_h, prog.ctb_w)
+        if prog.sao is not None and len(prog.sao):
+            host["sao_t"] = prog.sao["type_idx"].astype(np.int32).reshape(
+                *sh, 3)
+            host["sao_eo"] = prog.sao["eo_class"].astype(np.int32).reshape(
+                *sh, 3)
+            host["sao_band"] = prog.sao["band_pos"].astype(np.int32).reshape(
+                *sh, 3)
+            host["sao_off"] = prog.sao["offset"].astype(np.int32).reshape(
+                *sh, 3, 4)
+        else:
+            host["sao_t"] = np.zeros((*sh, 3), np.int32)
+            host["sao_eo"] = np.zeros((*sh, 3), np.int32)
+            host["sao_band"] = np.zeros((*sh, 3), np.int32)
+            host["sao_off"] = np.zeros((*sh, 3, 4), np.int32)
+
+        self._note_l1(prog)
+
+        # --- pack: ONE host->device upload per picture ---
+        layout = []
+        total = 0
+        for k in sorted(host):
+            layout.append((k, total, tuple(host[k].shape)))
+            total += host[k].size
+        buf = np.empty(max(total, 1), np.int32)
+        for (k, off, shp) in layout:
+            a = host[k]
+            buf[off:off + a.size] = a.ravel()
+        return tuple(layout), buf, lgs, n_slices

@@ -1,0 +1,889 @@
+"""Whole-picture decode on one device: the PyTorch port of
+``libde265_tpu/fused_decode.py`` (its ``use_pallas_mc=False`` program).
+
+Per picture the host packs one int32 feed buffer plus a layout (``feed``),
+uploads it as one tensor, and ``_compiled_impl`` runs the picture in the
+order of the JAX program: per-cell PU gather, motion compensation,
+coefficient densify (kernel B4), dequant + IDCT, residual add, PCM, the
+intra super-wave scan, deblocking (kernels B8, B9) and SAO (kernel B10).
+Decoded planes stay on the device and serve as references of later
+pictures.
+
+The device of the tensors selects the implementation of each kernel: on a
+CUDA tensor the wrapper launches the hand-written Hopper kernel, on a CPU
+tensor it runs the plain PyTorch version.  Host-known values of the feed
+(the MC gate, the intra step counts) are read from the numpy buffer, so the
+frame program never waits on the device.
+
+JAX silently clamps out-of-range gather indices and drops out-of-range
+scatter writes (``mode="drop"``), and the feed relies on that with its
+sentinel pads.  Here every such index is clamped or redirected to a
+trailing scratch element explicitly.
+
+Not in this port yet (each raises NotImplementedError): pictures with more
+than MAX_REFS references (ROADMAP A8), cross-component prediction and RDPCM
+(A2), and the padded DPB ring with the fused store (A4).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from libde265_tpu.decoder import (TU_TQ_BYPASS, TU_TRANSFORM_SKIP, TU_USE_DST,
+                                  FrameProgramData)
+
+from . import feed as fdp
+from .feed import AVAIL_WORDS, MAX_REFS, NOREF, WAVE_CAP, FeedPacker
+from .frame_helpers import (_cells_to_plane, _chroma_qp_map,
+                            _edge_params_jnp, _mc_plane, _merge,
+                            _pad_edge0_cols)
+from .ops import coef_cuda, deblock_cuda, sao_cuda
+from .ops import deblock as dbk
+from .ops import transform as tx
+from .ops.intra_wave import build_mode_tables
+from .ops.mc import EPEL_FILTERS, QPEL_FILTERS
+from .ops.sao import EO_D
+
+_PC_OF = {v: k for k, v in fdp._PLANE_CLASS.items()}
+
+
+def _i32(a, device):
+    return torch.as_tensor(a, dtype=torch.int32, device=device)
+
+
+def _scatter(plane, rows, cols, vals, ok, add=False):
+    """plane[rows, cols] = vals (or += with add) where ok and in bounds; the
+    rest goes to a scratch element and is dropped (JAX's mode="drop").
+
+    The targets that are kept must be distinct, as they are in the feed
+    (TUs and PCM blocks do not overlap).  An add therefore reads, adds and
+    writes: index_put_'s accumulate mode sorts the indices, and the many
+    dropped entries that share the scratch index serialize that sort's
+    reduction on a GPU (tens of ms per picture at 1080p)."""
+    H, W = plane.shape
+    ok = ok & (rows >= 0) & (rows < H) & (cols >= 0) & (cols < W)
+    idx = torch.where(ok, rows.long() * W + cols.long(), H * W).reshape(-1)
+    flat = torch.cat([plane.reshape(-1), plane.new_zeros(1)])
+    v = vals.reshape(-1).to(plane.dtype)
+    flat[idx] = flat[idx] + v if add else v
+    return flat[:-1].view(H, W)
+
+
+# ---------------------------------------------------------------------------
+# feed unpacking
+# ---------------------------------------------------------------------------
+
+def _unpack_irec(p):
+    """Inverse of feed._pack_irec: [8, cap] -> [cap, 15] int32 (numpy array
+    or tensor in, same kind out)."""
+    w0, w1, w2 = p[0], p[1], p[2]
+    cols = [w0 & 63, (w0 >> 6) & 15, w1 & 0xFFFF, (w1 >> 16) & 0xFFFF,
+            (w0 >> 10) & 15, (w2 & 0x3FFFFF) - 1, (w0 >> 19) & 0x1FFF,
+            (w2 >> 22) & 0x3FF, (w0 >> 14) & 3, (w0 >> 16) & 7,
+            p[3], p[4], p[5], p[6], p[7]]
+    if isinstance(p, np.ndarray):
+        return np.stack(cols, axis=1)
+    return torch.stack(cols, dim=1)
+
+
+def _split(buf, layout):
+    """The feed fields as views of the packed buffer (bins as sub-dicts)."""
+    feed = {}
+    for (k, off, shp) in layout:
+        n = int(np.prod(shp))
+        a = buf[off:off + n].reshape(shp)
+        parts = k.split(".")
+        if parts[0].startswith("bin"):
+            feed.setdefault(parts[0], {})[parts[1]] = a
+        else:
+            feed[k] = a
+    return feed
+
+
+def _expand_feed(feed):
+    """Expand the wire-compact feed fields: TU meta halfwords, the intra
+    records, the PU SoA and the per-4x4 grid word.  The coefficient stream
+    stays CSR (cv/coff) for densify_bin."""
+    for k, d in feed.items():
+        if k.startswith("bin") and "tm" in d:
+            # TU meta halfwords: qp7 (signed) | flags6<<7 | mid3<<13
+            tm = d.pop("tm")
+            h = torch.stack([tm & 0xFFFF, (tm >> 16) & 0xFFFF],
+                            dim=1).reshape(-1)[:d["coff"].shape[0] - 1]
+            d["qp"] = ((h & 0x7F) ^ 64) - 64
+            d["flags"] = (h >> 7) & 0x3F
+            d["mid"] = (h >> 13) & 7
+    if "irecp" in feed:
+        feed["irec"] = _unpack_irec(feed.pop("irecp"))
+    pu = feed["pu"]
+    mv0, mv1, meta, sl = pu[:, 0], pu[:, 1], pu[:, 2], pu[:, 3]
+    feed["pu"] = torch.stack(
+        [(mv0 << 16) >> 16, mv0 >> 16, (mv1 << 16) >> 16, mv1 >> 16,
+         meta & 3, (meta >> 2) & 63, (meta >> 8) & 63,
+         (meta >> 14) & 15, (meta >> 18) & 15, sl], dim=1)
+    g4 = feed.pop("g4")
+    feed["qp4"] = g4 & 0xFF
+    feed["nzc4"] = (g4 >> 8) & 1
+    feed["dbf4"] = (g4 >> 9) & 0xF
+    feed["cu4"] = (g4 >> 13) & 0xF
+    if "pu_idx" not in feed:
+        feed["pu_idx"] = ((g4 >> 17) & 0x7FFF) - 1
+
+
+def _host_values(hbuf, layout):
+    """Host-side copies of the feed values that steer control flow."""
+    hfeed = _split(hbuf, layout)
+    irec = _unpack_irec(hfeed["irecp"])
+    return {"mc_on": bool(hfeed["mc_on"][0]),
+            "nsteps": np.asarray(hfeed["nsteps"]), "irec": irec}
+
+
+def _compiled_impl(refs_y, refs_cb, refs_cr, buf, sf_tables, st, layout,
+                   host_buf=None):
+    """The whole-picture program on the packed feed.
+
+    refs_*: [MAX_REFS, h, w] int32 reference stacks; buf: the uploaded int32
+    feed; st: the static configuration (a dict, or the JAX package's tuple
+    of pairs); layout: (name, offset, shape) triples into buf; host_buf: the
+    numpy buffer buf was uploaded from (read back from buf if None)."""
+    std = dict(st)
+    if host_buf is None:
+        host_buf = buf.cpu().numpy()
+    feed = _split(buf, layout)
+    _expand_feed(feed)
+    return _frame_fn(refs_y, refs_cb, refs_cr, feed, sf_tables, std,
+                     _host_values(host_buf, layout))
+
+
+# ---------------------------------------------------------------------------
+# the frame program
+# ---------------------------------------------------------------------------
+
+def _check_config(st):
+    if st.get("fuse_store"):
+        raise NotImplementedError(
+            "padded DPB ring / fused store (ROADMAP B3, with the Pallas feed)")
+    if st.get("has_ccp") or st.get("has_rdpcm"):
+        raise NotImplementedError(
+            "cross-component prediction and RDPCM (ROADMAP A2)")
+
+
+def _frame_fn(refs_y, refs_cb, refs_cr, feed, sf_tables, st, host):
+    """One picture: returns the decoded planes (Y[, Cb, Cr]) as int32."""
+    _check_config(st)
+    dev = feed["pu"].device
+    H, W = st["H"], st["W"]
+    sub_x, sub_y = st["sub_x"], st["sub_y"]
+    bd, bdc = st["bd"], st["bdc"]
+    has_chroma = not st["mono"]
+    pb_h, pb_w = feed["pu_idx"].shape
+    w = torch.where
+
+    # ---- per-cell PU parameter gather (from the natively painted pu_idx) --
+    pidx = feed["pu_idx"].reshape(-1)
+    covered = pidx >= 0
+    pu = feed["pu"]  # [Pcap, 10]: mv0x mv0y mv1x mv1y pf slot0 slot1 r0 r1 sl
+    pc = pidx.long().clamp(0, pu.shape[0] - 1)
+    pcell = pu[pc]
+    ref_pocs = feed["ref_pocs"]
+    cell = {"pf": w(covered, pcell[:, 4], 0)}
+    for l in (0, 1):
+        has = ((cell["pf"] >> l) & 1) != 0
+        cell[f"mv{l}x"] = w(has, pcell[:, 2 * l], 0)
+        cell[f"mv{l}y"] = w(has, pcell[:, 1 + 2 * l], 0)
+        cell[f"slot{l}"] = w(has, pcell[:, 5 + l], 0)
+        slot = pcell[:, 5 + l].long().clamp(0, ref_pocs.shape[0] - 1)
+        cell[f"poc{l}"] = w(has, ref_pocs[slot], NOREF)
+        cell[f"ridx{l}"] = w(has, pcell[:, 7 + l].clamp(min=0), 0)
+    cell["slice"] = pcell[:, 9].clamp(0, st["n_slices"] - 1)
+
+    recs = feed["slice_recs"]
+    sl = cell["slice"].long()
+    wg = {"weighted": (recs[sl, 6] != 0).to(torch.int32),
+          "denom_l": recs[sl, 7], "denom_c": recs[sl, 8]}
+    for l in (0, 1):
+        r = cell[f"ridx{l}"].long().clamp(max=15)
+        wg[f"lw{l}"] = recs[sl, 16 + l * 16 + r]
+        wg[f"lo{l}"] = recs[sl, 48 + l * 16 + r]
+        for c in (0, 1):
+            wg[f"cw{l}{c}"] = recs[sl, 80 + (l * 16 + r) * 2 + c]
+            wg[f"co{l}{c}"] = recs[sl, 144 + (l * 16 + r) * 2 + c]
+
+    # ---- inter prediction over the cell grid ----
+    Hc, Wc = H // sub_y, W // sub_x
+    if st["has_inter"] and host["mc_on"]:
+        y, cbp, crp = _mc_section(refs_y, refs_cb, refs_cr, cell, wg, st,
+                                  pb_h, pb_w)
+        cov = covered.reshape(pb_h, pb_w)
+        m = cov.repeat_interleave(4, 0).repeat_interleave(4, 1)[:H, :W]
+        planes = [w(m, y, 0)]
+        if has_chroma:
+            mc_ = cov.repeat_interleave(4 // sub_y, 0).repeat_interleave(
+                4 // sub_x, 1)[:Hc, :Wc]
+            planes += [w(mc_, cbp, 0), w(mc_, crp, 0)]
+    else:
+        planes = [torch.zeros((H, W), dtype=torch.int32, device=dev)]
+        if has_chroma:
+            planes += [torch.zeros((Hc, Wc), dtype=torch.int32, device=dev)
+                       for _ in range(2)]
+
+    # ---- residual bins (densify + dequant + IDCT) ----
+    bin_res = {}
+    for lg in st["lgs"]:
+        s = 1 << lg
+        bf = feed[f"bin{lg}"]
+        n = bf["qp"].shape[0]
+        levels = coef_cuda.densify_bin(bf["cv"], bf["coff"], N=n, S=s)
+        if "cfx" in bf:
+            # escape corrections: the 4-bit wire value clamps to +-7; the
+            # full-precision delta is added here (pads carry cfx = -1)
+            # (positions are distinct: read, add, write; see _scatter)
+            cfx = bf["cfx"].long()
+            ok = (cfx >= 0) & (cfx < n * s * s)
+            idx = w(ok, cfx, n * s * s)
+            flat = torch.cat([levels.reshape(-1), levels.new_zeros(1)])
+            flat[idx] = flat[idx] + bf["cfv"]
+            levels = flat[:-1].view(n, s, s)
+        flags = bf["flags"]
+        tskip = (flags & TU_TRANSFORM_SKIP) != 0
+        use_dst = (flags & TU_USE_DST) != 0
+        bypass = (flags & TU_TQ_BYPASS) != 0
+        if st["scaling"]:
+            sf = sf_tables[lg - 2][bf["mid"].long()]
+            res = tx.residual_batch(levels, tx.qp_to_fact(bf["qp"]), tskip,
+                                    use_dst, lg, bd, sf=sf, qp=bf["qp"])
+        else:
+            res = tx.residual_batch(levels, tx.qp_to_fact(bf["qp"]), tskip,
+                                    use_dst, lg, bd)
+        bin_res[lg] = w(bypass[:, None, None], levels, res)
+
+    # ---- inter residual scatter-add + clip ----
+    for lg in st["lgs"]:
+        s = 1 << lg
+        bf = feed[f"bin{lg}"]
+        ar = torch.arange(s, device=dev)
+        for c, ch in ((0, "y"), (1, "cb"), (2, "cr")):
+            if c > 0 and not has_chroma:
+                continue
+            sc = bf[f"sc_{ch}"]  # [cap, 3] rows/x/y ; pad rows = -1
+            if sc.shape[0] == 0:
+                continue
+            rows = sc[:, 0]
+            blk = bin_res[lg][rows.long().clamp(0, bin_res[lg].shape[0] - 1)]
+            iy = sc[:, 2, None, None] + ar[None, :, None]
+            ix = sc[:, 1, None, None] + ar[None, None, :]
+            ok = (rows >= 0)[:, None, None].expand(-1, s, s)
+            planes[c] = _scatter(planes[c], iy.expand(-1, s, s),
+                                 ix.expand(-1, s, s), blk, ok, add=True)
+    planes[0] = planes[0].clamp(0, (1 << bd) - 1)
+    if has_chroma:
+        planes[1] = planes[1].clamp(0, (1 << bdc) - 1)
+        planes[2] = planes[2].clamp(0, (1 << bdc) - 1)
+
+    # ---- PCM scatter (pads carry index 1 << 30 and are dropped) ----
+    for c in range(len(planes)):
+        pcm = feed[f"pcm{c}"]
+        if pcm.shape[0]:
+            Wp = planes[c].shape[1]
+            idx = pcm[:, 0].long()
+            planes[c] = _scatter(planes[c], idx // Wp, idx % Wp, pcm[:, 1],
+                                 idx >= 0)
+
+    # ---- intra super-wave scans (one merged scan over all planes) ----
+    if st["intra_bins"]:
+        bins_by_plane = _scatter_intra_bins(feed["irec"], host["irec"],
+                                            st["intra_bins"],
+                                            st["steps_cap"])
+        planes = _intra_scan_all_inner(planes, bins_by_plane, bin_res, st,
+                                       host["nsteps"])
+
+    # ---- loop filters ----
+    skip4 = (feed["cu4"] & 4) != 0
+    if st["pcm_lf_disable"]:
+        skip4 = skip4 | ((feed["cu4"] & 2) != 0)
+    if st["run_deblock"]:
+        planes = _deblock_section(planes, feed, recs, cell, skip4, st)
+    if st["run_sao"]:
+        planes = _sao_section(planes, feed, recs, skip4, st)
+    return tuple(planes)
+
+
+def _mc_section(refs_y, refs_cb, refs_cr, cell, wg, st, pb_h, pb_w):
+    """Per-4x4-cell motion compensation from [R, h, w] reference stacks
+    (the JAX program's non-Pallas branch) and the weighted/bi merge."""
+    H, W = st["H"], st["W"]
+    sub_x, sub_y = max(st["sub_x"], 1), max(st["sub_y"], 1)
+    bd, bdc = st["bd"], st["bdc"]
+    use_l1 = st["use_l1"]
+    has_chroma = not st["mono"]
+    dev = refs_y.device
+    N = pb_h * pb_w
+    qf = _i32(QPEL_FILTERS, dev)
+    ef = _i32(EPEL_FILTERS, dev)
+    n = torch.arange(N, device=dev, dtype=torch.int32)
+    cy = (n // pb_w) * 4
+    cx = (n % pb_w) * 4
+    shx = 3 if sub_x == 2 else 2
+    shy = 3 if sub_y == 2 else 2
+    cs = 4 // sub_x
+    csv = 4 // sub_y
+    w = torch.where
+
+    preds_l, preds_cb, preds_cr = [], [], []
+    for l in (0, 1) if use_l1 else (0,):
+        mvx, mvy = cell[f"mv{l}x"], cell[f"mv{l}y"]
+        slot = cell[f"slot{l}"]
+        preds_l.append(_mc_plane(refs_y, slot, cx + (mvx >> 2),
+                                 cy + (mvy >> 2), mvx & 3, mvy & 3, qf, 8, 4,
+                                 bd))
+        if has_chroma:
+            cxc = cx // sub_x + (mvx >> shx)
+            cyc = cy // sub_y + (mvy >> shy)
+            fcx = (mvx & 7) if sub_x == 2 else ((mvx & 3) << 1)
+            fcy = (mvy & 7) if sub_y == 2 else ((mvy & 3) << 1)
+            preds_cb.append(_mc_plane(refs_cb, slot, cxc, cyc, fcx, fcy, ef,
+                                      4, cs, bdc)[:, :csv, :cs])
+            preds_cr.append(_mc_plane(refs_cr, slot, cxc, cyc, fcx, fcy, ef,
+                                      4, cs, bdc)[:, :csv, :cs])
+
+    pf = cell["pf"]
+    bi = pf == 3
+    first0 = (pf & 1) != 0     # the first prediction comes from list 0
+    if use_l1:
+        fsel = first0[:, None, None]
+        p0_l = w(fsel, preds_l[0], preds_l[1])
+        p1_l = preds_l[1]
+        w0 = w(first0, wg["lw0"], wg["lw1"])
+        o0 = w(first0, wg["lo0"], wg["lo1"])
+    else:
+        p0_l = p1_l = preds_l[0]
+        w0, o0 = wg["lw0"], wg["lo0"]
+    y_blk = _merge(p0_l, p1_l, bi, wg["weighted"], w0, o0, wg["lw1"],
+                   wg["lo1"], wg["denom_l"], bd)
+    y_plane = _cells_to_plane(y_blk, pb_h, pb_w, 4)[:H, :W]
+    if not has_chroma:
+        return y_plane, None, None
+
+    if use_l1:
+        pcb0 = w(fsel, preds_cb[0], preds_cb[1])
+        pcr0 = w(fsel, preds_cr[0], preds_cr[1])
+        pcb1, pcr1 = preds_cb[1], preds_cr[1]
+        cbw0 = w(first0, wg["cw00"], wg["cw10"])
+        cbo0 = w(first0, wg["co00"], wg["co10"])
+        crw0 = w(first0, wg["cw01"], wg["cw11"])
+        cro0 = w(first0, wg["co01"], wg["co11"])
+    else:
+        pcb0 = pcb1 = preds_cb[0]
+        pcr0 = pcr1 = preds_cr[0]
+        cbw0, cbo0 = wg["cw00"], wg["co00"]
+        crw0, cro0 = wg["cw01"], wg["co01"]
+    cb_blk = _merge(pcb0, pcb1, bi, wg["weighted"], cbw0, cbo0, wg["cw10"],
+                    wg["co10"], wg["denom_c"], bdc)
+    cr_blk = _merge(pcr0, pcr1, bi, wg["weighted"], crw0, cro0, wg["cw11"],
+                    wg["co11"], wg["denom_c"], bdc)
+
+    def to_plane(blk):
+        return blk.reshape(pb_h, pb_w, csv, cs).permute(0, 2, 1, 3).reshape(
+            pb_h * csv, pb_w * cs)[:H // sub_y, :W // sub_x]
+
+    return y_plane, to_plane(cb_blk), to_plane(cr_blk)
+
+
+# ---------------------------------------------------------------------------
+# intra super-wave scan
+# ---------------------------------------------------------------------------
+
+def _scatter_intra_bins(irec, irec_host, intra_bins, scap: int):
+    """Scatter the flat intra records into per-(plane, lg) scan arrays on
+    the device: {cidx: {lg: {"meta" [scap,K,5], "rrow" [scap,K],
+    "aw" [scap,K,AVAIL_WORDS], "depth" (host int)}}}."""
+    out = {}
+    dev = irec.device
+    for (pc, lg) in intra_bins:
+        c = _PC_OF[pc]
+        K = WAVE_CAP[lg]
+        step, slot = irec[:, 6].long(), irec[:, 7].long()
+        ok = (irec[:, 8] == c) & (irec[:, 9] == lg) & (step < scap) & \
+            (slot >= 0) & (slot < K)
+        # rows of other bins go to a scratch step row scap
+        idx = (torch.where(ok, step, scap), slot.clamp(0, K - 1))
+        meta = torch.zeros((scap + 1, K, 5), dtype=torch.int32, device=dev)
+        meta.index_put_(idx, irec[:, 0:5])
+        rrow = torch.full((scap + 1, K), -1, dtype=torch.int32, device=dev)
+        rrow.index_put_(idx, irec[:, 5])
+        aw = torch.zeros((scap + 1, K, AVAIL_WORDS), dtype=torch.int32,
+                         device=dev)
+        aw.index_put_(idx, irec[:, 10:10 + AVAIL_WORDS])
+        hs = (irec_host[:, 8] == c) & (irec_host[:, 9] == lg)
+        depth = int((irec_host[hs, 6] + 1).max(initial=0))
+        out.setdefault(c, {})[lg] = {"meta": meta[:scap], "rrow": rrow[:scap],
+                                     "aw": aw[:scap], "depth": depth}
+    return out
+
+
+def _intra_scan_all_inner(planes, bins_by_plane, bin_res, st, nsteps):
+    """Replay the super-wave steps, all planes advancing together.  The
+    step count and each bin's depth are host values: a step beyond a bin's
+    depth for this picture is skipped without touching the device."""
+    lgs_all = sorted({lg for b in bins_by_plane.values() for lg in b})
+    dev = planes[0].device
+    tables = {lg: tuple(_i32(t, dev) for t in build_mode_tables(1 << lg))
+              for lg in lgs_all}
+    total = int(np.max(nsteps)) if len(nsteps) else 0
+    # planes as flat buffers with a trailing scratch element for the scatter
+    shapes = [p.shape for p in planes]
+    flats = [torch.cat([p.reshape(-1), p.new_zeros(1)]) for p in planes]
+    for i in range(total):
+        for c in sorted(bins_by_plane):
+            if c >= len(flats):
+                continue
+            bd = st["bd"] if c == 0 else st["bdc"]
+            for lg in sorted(bins_by_plane[c]):
+                v = bins_by_plane[c][lg]
+                if i >= v["depth"]:
+                    continue
+                rrow = v["rrow"][i]
+                res = bin_res[lg]
+                resid = torch.where(
+                    (rrow >= 0)[:, None, None],
+                    res[rrow.long().clamp(0, res.shape[0] - 1)], 0)
+                _wave_step(flats[c], shapes[c], v["meta"][i], v["aw"][i],
+                           resid, *tables[lg], s=1 << lg, bit_depth=bd)
+    return [f[:-1].view(shp) for f, shp in zip(flats, shapes)]
+
+
+def _wave_body(plane, meta, aw, resid, P0, P1, WT, s: int, bit_depth: int):
+    """One super-wave step: predict + residual-add K same-size blocks and
+    write them into the plane (returns the new plane)."""
+    flat = torch.cat([plane.reshape(-1), plane.new_zeros(1)])
+    _wave_step(flat, plane.shape, meta, aw, resid, P0, P1, WT, s, bit_depth)
+    return flat[:-1].view(plane.shape)
+
+
+def _wave_step(flat, shape, meta, aw, resid, P0, P1, WT, s: int,
+               bit_depth: int):
+    """_wave_body on a flat plane buffer with a trailing scratch element,
+    updated in place.  Same math as ops.intra_wave.intra_wave_kernel (spec
+    8.4.4.2): the border gather positions are pure geometry and the
+    substitution chain (8.4.4.2.2) is re-derived from the availability
+    bits; the angular fetch is an integer gather."""
+    Hc, Wc = shape
+    dev = flat.device
+    w = torch.where
+    mode, edge, y0, x0 = meta[:, 0], meta[:, 1], meta[:, 2], meta[:, 3]
+    unavail = (meta[:, 4] & 1) != 0
+    filt = (meta[:, 4] & 2) != 0
+    strong = (meta[:, 4] & 4) != 0
+    valid = (meta[:, 4] & 8) != 0
+    N = mode.shape[0]
+    n2 = 2 * s
+    nb = 4 * s + 1
+    maxv = (1 << bit_depth) - 1
+    lg = s.bit_length() - 1
+
+    # border geometry: k<2s left column (bottom->top), k=2s corner,
+    # k>2s top row (left->right); clamps keep unavailable positions in
+    # bounds (they are never used)
+    k = torch.arange(nb, device=dev)
+    yy = w(k[None, :] < n2, y0[:, None] + (n2 - 1) - k[None, :],
+           y0[:, None] - 1)
+    xx = w(k[None, :] <= n2, x0[:, None] - 1, x0[:, None] + k[None, :] - n2 - 1)
+    pos = yy.clamp(0, Hc - 1).long() * Wc + xx.clamp(0, Wc - 1).long()
+    b_raw = flat[pos]
+    # substitution: each sample takes the last available sample at or
+    # before it, else the first available one (jump-propagation ladders)
+    fil = ((aw[:, k >> 5] >> (k & 31)) & 1) != 0
+    b = w(fil, b_raw, 0)
+    sh = 1
+    while sh < nb:                       # fill-forward: nearest at-or-before
+        b = w(fil, b, torch.cat([b.new_zeros((N, sh)), b[:, :nb - sh]], 1))
+        fil = fil | torch.cat([fil.new_zeros((N, sh)), fil[:, :nb - sh]], 1)
+        sh *= 2
+    sh = 1
+    while sh < nb:                       # fill-backward: before the first
+        b = w(fil, b, torch.cat([b[:, sh:], b.new_zeros((N, sh))], 1))
+        fil = fil | torch.cat([fil[:, sh:], fil.new_zeros((N, sh))], 1)
+        sh *= 2
+    b = w(unavail[:, None], 1 << (bit_depth - 1), b)
+
+    corner = b[:, n2]
+    tap3 = b.clone()
+    tap3[:, 1:-1] = (b[:, :-2] + 2 * b[:, 1:-1] + b[:, 2:] + 2) >> 2
+    if s == 32:
+        thr = 1 << (bit_depth - 5)
+        bi_ok = (((corner + b[:, 4 * s] - 2 * b[:, n2 + s]).abs() < thr) &
+                 ((corner + b[:, 0] - 2 * b[:, s]).abs() < thr))
+        i = torch.arange(1, n2, device=dev, dtype=torch.int32)
+        bl = b[:, 0:1]
+        tr = b[:, 4 * s:4 * s + 1]
+        bilin = b.clone()
+        bilin[:, n2 - i] = ((n2 - i)[None, :] * corner[:, None] +
+                            i[None, :] * bl + 32) >> 6
+        bilin[:, n2 + i] = ((n2 - i)[None, :] * corner[:, None] +
+                            i[None, :] * tr + 32) >> 6
+        filtered = w((strong & bi_ok)[:, None], bilin,
+                     w(filt[:, None], tap3, b))
+    else:
+        filtered = w(filt[:, None], tap3, b)
+
+    left = filtered[:, :n2].flip(1)
+    top = filtered[:, n2 + 1:]
+    corner = filtered[:, n2]
+
+    xg = torch.arange(s, device=dev, dtype=torch.int32)[None, None, :]
+    yg = torch.arange(s, device=dev, dtype=torch.int32)[None, :, None]
+    planar = (((s - 1 - xg) * left[:, :s, None] +
+               (xg + 1) * top[:, s, None, None] +
+               (s - 1 - yg) * top[:, None, :s] +
+               (yg + 1) * left[:, s, None, None] + s) >> (lg + 1))
+
+    dc = ((left[:, :s].sum(1) + top[:, :s].sum(1) + s) >> (lg + 1)).to(
+        torch.int32)
+    dcp = dc[:, None, None].expand(N, s, s)
+    if s < 32:
+        dce = dcp.clone()
+        dce[:, 0, 1:] = (top[:, 1:s] + 3 * dc[:, None] + 2) >> 2
+        dce[:, 1:, 0] = (left[:, 1:s] + 3 * dc[:, None] + 2) >> 2
+        dce[:, 0, 0] = (left[:, 0] + 2 * dc + top[:, 0] + 2) >> 2
+        dcp = w((edge == 1)[:, None, None], dce, dcp)
+
+    # angular reference fetch: rows of the per-mode tables, then a gather
+    # along the filtered border.  Table entries outside the border (only
+    # ever paired with weight 0) read as 0, as the JAX one-hot product does.
+    mi = mode.long().clamp(0, 34)
+
+    def fetch(tab):
+        p = tab[mi].long()
+        inside = (p >= 0) & (p < nb)
+        return w(inside, torch.gather(filtered, 1, p.clamp(0, nb - 1)), 0)
+
+    g0 = fetch(P0)
+    g1 = fetch(P1)
+    wt = WT[mi]
+    ang = (((32 - wt) * g0 + wt * g1 + 16) >> 5).reshape(N, s, s)
+    if s < 32:
+        v26 = (top[:, 0, None] + ((left[:, :s] - corner[:, None]) >> 1)).clamp(
+            0, maxv)
+        v10 = (left[:, 0, None] + ((top[:, :s] - corner[:, None]) >> 1)).clamp(
+            0, maxv)
+        a26 = ang.clone()
+        a26[:, :, 0] = v26
+        ang = w((edge == 2)[:, None, None], a26, ang)
+        a10 = ang.clone()
+        a10[:, 0, :] = v10
+        ang = w((edge == 3)[:, None, None], a10, ang)
+
+    pred = w((mode == 0)[:, None, None], planar,
+             w((mode == 1)[:, None, None], dcp, ang))
+    out = (pred + resid).clamp(0, maxv)
+
+    # write the valid blocks (disjoint within a step); the rest goes to the
+    # scratch element
+    ar = torch.arange(s, device=dev)
+    rows = y0[:, None, None] + ar[None, :, None]
+    cols = x0[:, None, None] + ar[None, None, :]
+    ok = valid[:, None, None] & (rows < Hc) & (cols < Wc) & (rows >= 0) & \
+        (cols >= 0)
+    idx = w(ok, rows.long() * Wc + cols.long(), Hc * Wc)
+    flat.index_put_((idx.reshape(-1),), out.reshape(-1))
+
+
+# ---------------------------------------------------------------------------
+# loop filters
+# ---------------------------------------------------------------------------
+
+def _edge_ok_jnp(emap, feed, recs, sidx, cs, Hc, Wc, st):
+    """Per-sample SAO edge validity across slice/tile boundaries (port of
+    ops.sao.edge_boundary_ok, as the JAX program's _edge_ok_jnp)."""
+    dev = emap.device
+    cs_y, cs_x = cs
+    yy = (torch.arange(Hc, device=dev) // cs_y)[:, None]
+    xx = (torch.arange(Wc, device=dev) // cs_x)[None, :]
+    A = feed["slice_addr"][yy, xx]
+    L = (recs[sidx.long(), 9] != 0)[yy, xx]
+    T = feed["tile_id"][yy, xx]
+
+    def shifted(m, dy, dx):
+        ys = (torch.arange(Hc, device=dev) + dy).clamp(0, Hc - 1)
+        xs = (torch.arange(Wc, device=dev) + dx).clamp(0, Wc - 1)
+        return m[ys[:, None], xs[None, :]]
+
+    def ok(dy, dx):
+        slice_ok = (shifted(A, dy, dx) == A) | (L & shifted(L, dy, dx))
+        tile_ok = st["across_tiles"] | (shifted(T, dy, dx) == T)
+        return slice_ok & tile_ok
+
+    good = torch.ones((Hc, Wc), dtype=torch.bool, device=dev)
+    for cls in range(4):
+        dy0, dx0, dy1, dx1 = (int(v) for v in EO_D[cls].ravel())
+        good = torch.where(emap == cls, ok(dy0, dx0) & ok(dy1, dx1), good)
+    return good
+
+
+def _deblock_section(planes, feed, recs, cell, skip4, st):
+    """Deblock V then H, luma and chroma, from the per-4x4 metadata; the
+    four passes are the B8/B9 kernel wrappers in natural layout."""
+    H, W, sub_x, sub_y = st["H"], st["W"], st["sub_x"], st["sub_y"]
+    bd, bdc = st["bd"], st["bdc"]
+    has_chroma = not st["mono"]
+    is420 = sub_x == 2 and sub_y == 2
+    dev = planes[0].device
+    pb_h, pb_w = feed["qp4"].shape
+    cs4 = st["ctb_size"] // 4
+    cy = (torch.arange(pb_h, device=dev) // cs4)[:, None]
+    cx = (torch.arange(pb_w, device=dev) // cs4)[None, :]
+    sidx4 = feed["slice_idx"][cy, cx].clamp(0, st["n_slices"] - 1).long()
+    disabled4 = recs[sidx4, 1] != 0
+    sa4 = feed["slice_addr"][cy, cx]
+    ti4 = feed["tile_id"][cy, cx]
+    across4 = recs[sidx4, 9] != 0
+
+    def gate(axis):
+        slice_ok = (torch.roll(sa4, 1, dims=axis) == sa4) | across4
+        tile_ok = st["across_tiles"] | (torch.roll(ti4, 1, dims=axis) == ti4)
+        return (slice_ok & tile_ok & ~disabled4).to(torch.int32)
+
+    dbf = feed["dbf4"]
+    meta = {
+        "intra": feed["cu4"] & 1,
+        "nzc": feed["nzc4"] & 1,
+        "tu_edge_v": ((dbf & 1) != 0).to(torch.int32),
+        "tu_edge_h": ((dbf & 2) != 0).to(torch.int32),
+        "pu_edge_v": ((dbf & 4) != 0).to(torch.int32),
+        "pu_edge_h": ((dbf & 8) != 0).to(torch.int32),
+        "qp": feed["qp4"],
+        "pf": cell["pf"].reshape(pb_h, pb_w),
+        "mv": [[cell[f"mv{l}x"].reshape(pb_h, pb_w),
+                cell[f"mv{l}y"].reshape(pb_h, pb_w)] for l in (0, 1)],
+        "rp": [cell[f"poc{l}"].reshape(pb_h, pb_w) for l in (0, 1)],
+        "bit_depth": bd,
+        "beta_off": recs[sidx4, 2],
+        "tc_off": recs[sidx4, 3],
+        "cqo0": recs[sidx4, 10],
+        "cqo1": recs[sidx4, 11],
+        "unfilt": skip4.to(torch.int32),
+        "allow_v": gate(1),
+        "allow_h": gate(0),
+    }
+    tc_table = _i32(dbk.TC_TABLE, dev)
+
+    def chroma_tc(qp_l, cqo, tco, bs):
+        qpc = _chroma_qp_map(qp_l[None] + torch.stack(cqo), is420)
+        tc = tc_table[(qpc + 2 + tco[None]).clamp(0, 53).long()] << (bdc - 8)
+        return torch.where(bs[None] == 2, tc, 0)
+
+    y = planes[0]
+    cb = planes[1] if has_chroma else None
+    cr = planes[2] if has_chroma else None
+    Ev, Eh = W // 8, H // 8
+    Hc, Wc = H // sub_y, W // sub_x
+
+    # ---- vertical edges ----
+    pv = _edge_params_jnp(meta, vertical=True)
+    prm = {k: _pad_edge0_cols(v, Ev).contiguous() for k, v in pv.items()
+           if k not in ("cqo", "tco")}
+    pad = torch.zeros((H, W + 8), dtype=torch.int32, device=dev)
+    pad[:, 4:4 + W] = y
+    y = deblock_cuda.luma_pass(pad, prm["bs"], prm["beta"], prm["tc"],
+                               prm["no_p"], prm["no_q"], bit_depth=bd)[
+        :, 4:4 + W]
+    if has_chroma:
+        Ec = Wc // 8
+        segs = slice(0, Ev, sub_x)
+        cqo = [_pad_edge0_cols(c, Ev)[:, segs] for c in pv["cqo"]]
+        tco = _pad_edge0_cols(pv["tco"], Ev)[:, segs]
+        tc_c = chroma_tc(prm["qp_l"][:, segs], cqo, tco, prm["bs"][:, segs])
+        padc = torch.zeros((2, Hc, Wc + 8), dtype=torch.int32, device=dev)
+        padc[:, :, 2:2 + Wc] = torch.stack([cb, cr])
+        outc = deblock_cuda.chroma_pass_stacked(
+            padc, tc_c[:, :, :Ec].contiguous(),
+            prm["no_p"][:, segs][:, :Ec].contiguous(),
+            prm["no_q"][:, segs][:, :Ec].contiguous(), bit_depth=bdc,
+            rows_per_seg=4 // sub_y)
+        cb, cr = outc[0, :, 2:2 + Wc], outc[1, :, 2:2 + Wc]
+
+    # ---- horizontal edges (natural [Eh, W/4] layout: edge e at y = 8e) ----
+    ph = _edge_params_jnp(meta, vertical=False)
+
+    def pad0_rows(a):
+        return torch.cat([a.new_zeros((1, a.shape[1])), a], 0)[:Eh]
+
+    prm = {k: pad0_rows(v).contiguous() for k, v in ph.items()
+           if k not in ("cqo", "tco")}
+    pad = torch.zeros((H + 8, W), dtype=torch.int32, device=dev)
+    pad[4:4 + H, :] = y
+    y = deblock_cuda.luma_pass_h(pad, prm["bs"], prm["beta"], prm["tc"],
+                                 prm["no_p"], prm["no_q"], bit_depth=bd)[
+        4:4 + H, :]
+    if has_chroma:
+        Ech = Hc // 8
+        segs = slice(0, Eh, sub_y)
+        cqo = [pad0_rows(c)[segs] for c in ph["cqo"]]
+        tco = pad0_rows(ph["tco"])[segs]
+        tc_c = chroma_tc(prm["qp_l"][segs], cqo, tco, prm["bs"][segs])
+        padc = torch.zeros((2, Hc + 8, Wc), dtype=torch.int32, device=dev)
+        padc[:, 2:2 + Hc, :] = torch.stack([cb, cr])
+        outc = deblock_cuda.chroma_pass_stacked_h(
+            padc, tc_c[:, :Ech, :].contiguous(),
+            prm["no_p"][segs][:Ech].contiguous(),
+            prm["no_q"][segs][:Ech].contiguous(), bit_depth=bdc,
+            cols_per_seg=4 // sub_x)
+        cb, cr = outc[0, 2:2 + Hc, :], outc[1, 2:2 + Hc, :]
+    return [y, cb, cr] if has_chroma else [y]
+
+
+def _sao_section(planes, feed, recs, skip4, st):
+    """SAO from the per-CTB parameter maps; one B10 kernel per plane."""
+    H, W, sub_x, sub_y = st["H"], st["W"], st["sub_x"], st["sub_y"]
+    ctb = st["ctb_size"]
+    sidx = feed["slice_idx"].clamp(0, st["n_slices"] - 1).long()
+    sao_on = [(recs[sidx, 4] != 0).to(torch.int32),
+              (recs[sidx, 5] != 0).to(torch.int32)]
+
+    def up(a, cs_y, cs_x, Hc, Wc):
+        return a.repeat_interleave(cs_y, 0).repeat_interleave(cs_x, 1)[
+            :Hc, :Wc].contiguous()
+
+    def one_plane(c, on, cs_y, cs_x, Hc, Wc, skip, bd):
+        t = up(feed["sao_t"][:, :, c] * on, cs_y, cs_x, Hc, Wc)
+        e = up(feed["sao_eo"][:, :, c], cs_y, cs_x, Hc, Wc)
+        b = up(feed["sao_band"][:, :, c], cs_y, cs_x, Hc, Wc)
+        o = up(feed["sao_off"][:, :, c], cs_y, cs_x, Hc, Wc)
+        eok = _edge_ok_jnp(e, feed, recs, sidx, (cs_y, cs_x), Hc, Wc, st) \
+            if st["multi_boundary"] else None
+        return sao_cuda.sao_plane_fused(planes[c].contiguous(), t, e, b, o,
+                                        skip, bit_depth=bd, edge_ok=eok)
+
+    skip_l = up(skip4, 4, 4, H, W)
+    out = [one_plane(0, sao_on[0], ctb, ctb, H, W, skip_l, st["bd"])]
+    if len(planes) > 1:
+        Hc, Wc = st["ch"], st["cw"]
+        cs_y, cs_x = ctb // sub_y, ctb // sub_x
+        skip_c = up(skip4, 4 // sub_y, 4 // sub_x, Hc, Wc)
+        out += [one_plane(c, sao_on[1], cs_y, cs_x, Hc, Wc, skip_c, st["bdc"])
+                for c in (1, 2)]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the decoder
+# ---------------------------------------------------------------------------
+
+class FusedDecoder:
+    """One whole-picture program per picture on `device`.
+
+    Usage:
+        fd = FusedDecoder(device="cuda")
+        fd.plan_stream(progs)       # optional: final capacities up front
+        planes = fd.decode(prog)    # device tensors, also kept by POC
+    """
+
+    def __init__(self, device="cpu"):
+        self.device = torch.device(device)
+        self.packer = FeedPacker()
+        self.dpb = {}
+        self._order = []
+
+    def plan_stream(self, progs):
+        """Pre-size every capacity watermark from a list of pictures."""
+        self.packer.plan_stream(progs)
+
+    def _refs(self, prog):
+        """[MAX_REFS, h, w] reference stacks per plane and the reference
+        index -> stack slot map.  References come from this decoder's DPB,
+        else from the planes the parser attached (a seek), else mid-gray."""
+        pocs = list(prog.ref_pocs)
+        H, W = prog.height, prog.width
+        cw = max(prog.chroma_width, 1)
+        ch = max(prog.chroma_height, 1)
+        dev = self.device
+
+        def full(shape, v):
+            return torch.full(shape, v, dtype=torch.int32, device=dev)
+
+        slot_map = {}
+        stack = [[], [], []]
+        for i, poc in enumerate(pocs[:MAX_REFS]):
+            if poc in self.dpb:
+                planes = self.dpb[poc]
+            elif (i < len(prog.ref_planes) and prog.ref_planes[i] and
+                  prog.ref_planes[i][0] is not None):
+                planes = [torch.from_numpy(p.astype(np.int32)).to(dev)
+                          for p in prog.ref_planes[i] if p is not None]
+            else:
+                planes = [full((H, W), 1 << (prog.bit_depth[0] - 1))]
+                if prog.chroma_width:
+                    planes += [full((ch, cw), 1 << (prog.bit_depth[c] - 1))
+                               for c in (1, 2)]
+            slot_map[i] = len(stack[0])
+            for c in range(3):
+                stack[c].append(planes[c] if c < len(planes)
+                                else full((1, 1), 0))
+        while len(stack[0]) < MAX_REFS:
+            stack[0].append(full((H, W), 0))
+            stack[1].append(full((ch, cw), 0))
+            stack[2].append(full((ch, cw), 0))
+        return [torch.stack(s) for s in stack], slot_map
+
+    def decode(self, prog: FrameProgramData):
+        if len(prog.ref_pocs) > MAX_REFS:
+            raise NotImplementedError(
+                f"{len(prog.ref_pocs)} references > MAX_REFS={MAX_REFS}: "
+                "needs pipeline.reconstruct and MAX_REFS 16 (ROADMAP A8)")
+        if fdp.has_ccp(prog) or fdp.has_rdpcm(prog):
+            raise NotImplementedError(
+                "cross-component prediction and RDPCM (ROADMAP A2)")
+        H, W = prog.height, prog.width
+        has_chroma = prog.chroma_width > 0
+        sub_x = W // prog.chroma_width if has_chroma else 1
+        sub_y = H // prog.chroma_height if has_chroma else 1
+        bd = prog.bit_depth[0]
+        bdc = prog.bit_depth[1] if has_chroma else bd
+
+        refs, slot_map = self._refs(prog)
+        pk = self.packer
+        layout, buf, lgs, n_slices = pk.pack(prog, slot_map)
+
+        sft = None
+        if prog.scaling_factors is not None:
+            sft = tuple(
+                torch.from_numpy(
+                    prog.scaling_factors[lg].astype(np.int32)).to(self.device)
+                if lg in prog.scaling_factors else torch.zeros(
+                    (6, 1 << lg, 1 << lg), dtype=torch.int32,
+                    device=self.device) for lg in (2, 3, 4, 5))
+
+        # sticky program variant, as in the JAX decoder
+        pk.has_inter = pk.has_inter or len(prog.pus) > 0
+        pk.multi = pk.multi or fdp._multi_boundary(prog)
+        st = {
+            "H": H, "W": W, "sub_x": sub_x, "sub_y": sub_y,
+            "cw": max(prog.chroma_width, 1), "ch": max(prog.chroma_height, 1),
+            "bd": bd, "bdc": bdc, "mono": not has_chroma,
+            "ctb_size": prog.ctb_size,
+            "n_slices": n_slices,
+            "use_l1": pk.use_l1,
+            "has_inter": pk.has_inter,
+            "scaling": sft is not None,
+            "lgs": tuple(lgs),
+            "pcm_lf_disable": bool(prog.pcm_loop_filter_disable),
+            "across_tiles": bool(prog.across_tiles),
+            "multi_boundary": pk.multi,
+            "run_deblock": True,
+            "run_sao": True,
+            "steps_cap": pk.caps["steps"] or 1,
+            "intra_bins": tuple(sorted(pk.intra_lgs)),
+        }
+        dbuf = torch.from_numpy(buf).to(self.device)
+        out = _compiled_impl(refs[0], refs[1], refs[2], dbuf, sft, st, layout,
+                             host_buf=buf)
+        self._store(prog.poc, out)
+        return out
+
+    def _store(self, poc, planes):
+        self.dpb[poc] = planes
+        self._order.append(poc)
+        while len(self._order) > 2 * MAX_REFS:
+            old = self._order.pop(0)
+            if old in self.dpb and old not in self._order:
+                del self.dpb[old]

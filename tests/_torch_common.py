@@ -1,0 +1,122 @@
+"""Shared helpers of the libde265_tpu_torch tests (not a test module).
+
+Streams come from the in-repo encoder, as in tests/test_fused_decode.py;
+random inputs come from numpy with fixed seeds so that the JAX reference
+and the PyTorch port see identical data.
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from libde265_tpu import Decoder, Encoder
+
+
+@pytest.fixture
+def cuda():
+    """The CUDA device, or skip: the hand-written kernels run only there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@functools.lru_cache(maxsize=None)
+def gop(w=96, h=96, n=5, bit_depth=8, **params):
+    """A small synthetic GOP (bytes), cached per parameter set."""
+    xx, yy = np.meshgrid(np.arange(w), np.arange(h))
+    sc = 1 << (bit_depth - 8)
+    dt = np.uint16 if bit_depth > 8 else np.uint8
+    with Encoder(qp=30, ctb_size=32, bit_depth=bit_depth) as enc:
+        for k, v in params.items():
+            enc.set_parameter(k, v)
+        stream = b""
+        for f in range(n):
+            y = (128 + 60 * np.sin((xx + 3 * f) * 0.11)
+                 * np.cos((yy + 2 * f) * 0.07)).clip(0, 255)
+            cb = (100 + 40 * np.sin((xx[::2, ::2] + f) * 0.07)).clip(0, 255)
+            cr = (150 - 40 * np.cos((yy[::2, ::2] + f) * 0.06)).clip(0, 255)
+            stream += enc.encode((y * sc).astype(dt), (cb * sc).astype(dt),
+                                 (cr * sc).astype(dt))
+        return stream + enc.finish()
+
+
+GOPS = {
+    "p-sao": dict(params=(("intra-period", 8), ("sao", True))),
+    "b-tmvp": dict(params=(("intra-period", 8), ("b-slices", True),
+                           ("tmvp", True))),
+    "2refs": dict(params=(("intra-period", 8), ("num-refs", 2))),
+    "weighted": dict(params=(("intra-period", 8), ("weighted-pred", True))),
+    "10bit": dict(w=64, h=48, bit_depth=10,
+                  params=(("intra-period", 4), ("sao", True))),
+    "tiles": dict(w=128, h=96, params=(("intra-period", 4), ("sao", True),
+                                       ("tile-cols", 2), ("tile-rows", 2),
+                                       ("across-tiles", False),
+                                       ("ctbs-per-slice", 3))),
+}
+
+
+def gop_bytes(name):
+    g = dict(GOPS[name])
+    params = dict(g.pop("params"))
+    return gop(**g, **params)
+
+
+def programs(data):
+    """(decoder, programs) of a full scalar decode: each program carries
+    the oracle's planes."""
+    dec = Decoder(keep_programs=True)
+    list(dec.decode_all(data))
+    return dec, [dec.get_program(i) for i in range(dec.num_programs())]
+
+
+def encode_csr(pos, val):
+    """Byte entries of one TU: sorted positions, values in [-7..7] \\ {0}."""
+    order = np.argsort(pos)
+    pos, val = np.asarray(pos)[order], np.asarray(val)[order]
+    out = []
+    p = -1
+    for q, v in zip(pos, val):
+        g = int(q) - p - 1
+        out.extend([0] * (g // 15))
+        out.append(((g % 15) & 0xF) | ((int(v) & 0xF) << 4))
+        p = int(q)
+    while len(out) % 4:
+        out.append(0)
+    return out
+
+
+def bytes_to_words(bs):
+    b = np.asarray(bs, np.int64)
+    if len(b) % 4:
+        b = np.concatenate([b, np.zeros(4 - len(b) % 4, np.int64)])
+    return (b[0::4] | (b[1::4] << 8) | (b[2::4] << 16) |
+            (b[3::4] << 24)).astype(np.uint32).view(np.int32)
+
+
+def random_csr(rng, N, S, max_nnz, dense_frac=0.1):
+    """Random CSR bin: per-TU unique positions, 4-bit signed values, runs
+    padded to 4-entry multiples with zero bytes."""
+    bs, offs = [], [0]
+    for _ in range(N):
+        if rng.random() < 0.25:
+            n = 0
+        elif rng.random() < dense_frac:
+            n = min(S * S, max_nnz)
+        else:
+            n = int(rng.integers(1, min(S * S, max_nnz) + 1))
+        pos = rng.permutation(S * S)[:n]
+        val = rng.integers(-7, 8, n)
+        val[val == 0] = 1
+        e = encode_csr(pos, val) if n else []
+        bs.extend(e)
+        offs.append(offs[-1] + len(e))
+    return bytes_to_words(bs), np.array(offs, np.int32)
+
+
+def t32(a, device="cpu"):
+    """numpy -> int32 (or bool) torch tensor."""
+    a = np.ascontiguousarray(a)
+    if a.dtype != bool:
+        a = a.astype(np.int32)
+    return torch.from_numpy(a).to(device)
