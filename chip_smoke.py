@@ -7,23 +7,35 @@ Phases (any failure raises and the script exits non-zero):
   1. card check: a CUDA device must be present; prints the card's name and
      power limit as nvidia-smi reports them;
   2. build: the native parser library (cmake + ninja, the library target
-     only) and the port's CUDA kernels (nvcc, sm_90a);
-  3. main path at 1080p: a 1920x1088 P-GOP stream made by the in-repo
-     encoder is decoded with PipelinedDecoder(device="cuda"), every frame
-     held bit-exact against the scalar oracle's planes, with each kernel's
-     launch counted; prints fps and per-frame milliseconds (I and P);
-  4. kernels vs plain: each kernel against its plain PyTorch version on the
-     card, on seeded random inputs at the 1080p shapes and on the inputs
-     captured from the first I and P picture; exact equality; median
-     CUDA-event times of both;
+     only) and the port's CUDA kernels (one nvcc per source, in parallel,
+     sm_90a); prints the intra kernels' ptxas resource lines;
+  3. main path at 1080p, each run with the launch counts set to 0 before
+     it and read after it, every frame held bit-exact against the scalar
+     oracle's planes:
+       a. a 1920x1088 P-GOP (8 frames, intra period 4) made by the in-repo
+          encoder, decoded with PipelinedDecoder() (the default device);
+       b. a 1920x1088 all-intra GOP (4 frames, intra period 1), decoded
+          with PipelinedDecoder(): the intra scan through the fused step;
+     then synced per-picture milliseconds and launches (I and P), the
+     synced feed pack and intra scan of single pictures, and one
+     all-intra picture under torch.profiler (device busy and idle share);
+  4. kernels vs plain: each kernel against its plain PyTorch version on
+     the card, on seeded random inputs at the 1080p shapes and on the
+     inputs captured from the first I and P picture (the intra kernels on
+     the first I picture's whole step sequence); exact equality; CUDA-event
+     times of both, each kernel's device time (torch.profiler) and bound.
+     The separate B6 and B7 kernels are held here only: the decode runs
+     their device functions inside the fused step;
   5. a 416x240 B/weighted/2-ref stream, bit-exact on the card.
 
-The last two lines of stdout are the kernels JSON object and the card's
-nvidia-smi line, followed by the result line
-{"ok": true, "device": {...}}.  Nothing here imports JAX.
+The last three lines of stdout are the kernels JSON object (the main
+path's kernels: B4, B8, B9, B10 and the fused step), the card's
+nvidia-smi line and the result line {"ok": true, "device": {...}}.
+Nothing here imports JAX or the JAX package libde265_tpu.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import statistics
 import subprocess
@@ -37,21 +49,68 @@ REPO = Path(__file__).resolve().parent
 BUILD = REPO / "build"
 sys.path.insert(0, str(REPO))
 
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+INT_OPS_PER_S = 67e12       # H100 SXM peak outside the tensor cores
+
+B6, B7 = "B6 border_gather", "B7 window_scatter"
+STEP = "B6+B7 intra_step (fused)"
+
+# family -> (source, TPU kernel it replaces, ops module, launch counter,
+#            integer operations per output element, counted from the source)
 KERNELS = {
-    # family -> (source, TPU kernel it replaces)
     "B4 densify_bin": ("libde265_tpu_torch/csrc/coef.cu",
-                       "libde265_tpu/ops/coef_pallas.py:165"),
+                       "libde265_tpu/ops/coef_pallas.py:165",
+                       "coef_cuda", "launches", 2),
     "B8 luma_pass (V+H)": ("libde265_tpu_torch/csrc/deblock.cu",
-                           "libde265_tpu/ops/deblock_pallas.py:212"),
+                           "libde265_tpu/ops/deblock_pallas.py:212",
+                           "deblock_cuda", "luma_launches", 30),
     "B9 chroma_pass_stacked (V+H)": ("libde265_tpu_torch/csrc/deblock.cu",
-                                     "libde265_tpu/ops/deblock_pallas.py:263"),
+                                     "libde265_tpu/ops/deblock_pallas.py:263",
+                                     "deblock_cuda", "chroma_launches", 20),
     "B10 sao_plane_fused": ("libde265_tpu_torch/csrc/sao.cu",
-                            "libde265_tpu/ops/sao_pallas.py:120"),
+                            "libde265_tpu/ops/sao_pallas.py:120",
+                            "sao_cuda", "launches", 25),
+    STEP: ("libde265_tpu_torch/csrc/intra.cu",
+           "libde265_tpu/ops/intra_window_pallas.py:133,252",
+           "intra_cuda", "launches", 60),
 }
+# The separate B6 and B7 kernels: the decode runs their device functions
+# inside the fused step, one launch per step, so these two are held against
+# their plain versions in phase 4 only (no main-path launch check, not in
+# the kernels line).
+HELD = {
+    B6: ("libde265_tpu_torch/csrc/intra.cu",
+         "libde265_tpu/ops/intra_window_pallas.py:133",
+         "intra_window", "gather_launches", 8),
+    B7: ("libde265_tpu_torch/csrc/intra.cu",
+         "libde265_tpu/ops/intra_window_pallas.py:252",
+         "intra_window", "scatter_launches", 6),
+}
+ALL = {**KERNELS, **HELD}
+NAMES = list(ALL)
+INTRA = (STEP, B6, B7)
+
+# wrapper (module, function) -> family
+WRAPPERS = {("coef_cuda", "densify_bin"): NAMES[0],
+            ("deblock_cuda", "luma_pass"): NAMES[1],
+            ("deblock_cuda", "luma_pass_h"): NAMES[1],
+            ("deblock_cuda", "chroma_pass_stacked"): NAMES[2],
+            ("deblock_cuda", "chroma_pass_stacked_h"): NAMES[2],
+            ("sao_cuda", "sao_plane_fused"): NAMES[3],
+            ("intra_cuda", "intra_step"): STEP,
+            ("intra_window", "border_gather"): B6,
+            ("intra_window", "window_scatter"): B7}
+FAMILY = {fn: fam for (_, fn), fam in WRAPPERS.items()}
+MODULE = {fn: m for (m, fn) in WRAPPERS}
+INPLACE = ("window_scatter", "intra_step")   # update their first argument
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def ops_module(name):
+    return importlib.import_module(f"libde265_tpu_torch.ops.{name}")
 
 
 # ---------------------------------------------------------------------------
@@ -102,7 +161,7 @@ def make_stream(path: Path, w, h, frames, qp, params):
     """Encode (or reuse) a stream under build/; returns (bytes, seconds)."""
     if path.exists():
         return path.read_bytes(), 0.0
-    from libde265_tpu import Encoder
+    from libde265_tpu_torch import Encoder
     rng = np.random.default_rng(42)
     base = rng.integers(0, 40, (h, w), np.int16)
     yy, xx = np.mgrid[0:h, 0:w]
@@ -120,7 +179,7 @@ def make_stream(path: Path, w, h, frames, qp, params):
 
 def oracle_programs(data):
     """Programs with the scalar decoder's planes (the bit-exact oracle)."""
-    from libde265_tpu import Decoder
+    from libde265_tpu_torch import Decoder
     dec = Decoder(keep_programs=True)
     list(dec.decode_all(data))
     return dec, [dec.get_program(i) for i in range(dec.num_programs())]
@@ -145,54 +204,179 @@ def assert_bit_exact(outs, progs, what):
 # launch counters and input capture
 # ---------------------------------------------------------------------------
 
-def kernel_modules():
-    from libde265_tpu_torch.ops import coef_cuda, deblock_cuda, sao_cuda
-    return coef_cuda, deblock_cuda, sao_cuda
-
-
 def reset_counts():
-    coef, dbk, sao = kernel_modules()
-    coef.launches = 0
-    dbk.luma_launches = 0
-    dbk.chroma_launches = 0
-    sao.launches = 0
+    for v in ALL.values():
+        setattr(ops_module(v[2]), v[3], 0)
 
 
 def read_counts():
-    coef, dbk, sao = kernel_modules()
-    names = list(KERNELS)
-    return {names[0]: coef.launches, names[1]: dbk.luma_launches,
-            names[2]: dbk.chroma_launches, names[3]: sao.launches}
+    return {n: getattr(ops_module(v[2]), v[3]) for n, v in ALL.items()}
 
 
-WRAPPERS = (("coef", "densify_bin"), ("dbk", "luma_pass"),
-            ("dbk", "luma_pass_h"), ("dbk", "chroma_pass_stacked"),
-            ("dbk", "chroma_pass_stacked_h"), ("sao", "sao_plane_fused"))
+def main_path_run(what, data, progs):
+    """One main-path run: counts set to 0, PipelinedDecoder() over the
+    stream, synchronised, counts read; every frame held bit-exact."""
+    import torch
+    import libde265_tpu_torch as lt
+    pd = lt.PipelinedDecoder()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = pd.decode_stream(data)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    assert_bit_exact(outs, progs, what)
+    log(f"{what}: {len(progs)} frames bit-exact; e2e {len(progs) / dt:.4f} "
+        f"fps ({1000 * dt / len(progs):.1f} ms/frame); launches "
+        f"{json.dumps(counts)}")
+    return counts, dt
+
+
+def per_picture(progs):
+    """Synced ms and launch counts of each picture (FusedDecoder())."""
+    import torch
+    import libde265_tpu_torch as lt
+    fd = lt.FusedDecoder()
+    fd.plan_stream(progs)
+    rows = []
+    for p in progs:
+        reset_counts()
+        t0 = time.perf_counter()
+        fd.decode(p)
+        torch.cuda.synchronize()
+        rows.append((1000 * (time.perf_counter() - t0), read_counts(),
+                     len(p.pus) == 0))
+    return rows
+
+
+def section_ms(progs, idx):
+    """Synced ms of one picture's host feed pack, intra scan and whole
+    decode (the pictures before it decoded first, untimed)."""
+    import torch
+    import libde265_tpu_torch as lt
+    fdm, feed = lt.fused_decode, lt.feed
+    spent = {"pack": 0.0, "intra scan": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[key] += 1000 * (time.perf_counter() - t0)
+            return out
+        return run
+
+    fd = lt.FusedDecoder()
+    fd.plan_stream(progs)
+    for p in progs[:idx]:
+        fd.decode(p)
+    scan, pack = fdm._intra_scan_all, feed.FeedPacker.pack
+    fdm._intra_scan_all = timed("intra scan", scan)
+    feed.FeedPacker.pack = timed("pack", pack)
+    try:
+        t0 = time.perf_counter()
+        fd.decode(progs[idx])
+        torch.cuda.synchronize()
+        spent["picture"] = 1000 * (time.perf_counter() - t0)
+    finally:
+        fdm._intra_scan_all, feed.FeedPacker.pack = scan, pack
+    return spent
+
+
+def profile_picture(progs, idx):
+    """torch.profiler over one picture (the ones before it decoded first,
+    untraced): wall ms, device busy ms (the sum of kernel self times, one
+    stream), and the device ms per kernel name containing "intra"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import libde265_tpu_torch as lt
+    fd = lt.FusedDecoder()
+    fd.plan_stream(progs)
+    for p in progs[:idx]:
+        fd.decode(p)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fd.decode(progs[idx])
+        torch.cuda.synchronize()
+        wall = 1000 * (time.perf_counter() - t0)
+
+    ka = prof.key_averages()
+    busy = sum(_device_us(e) for e in ka) / 1000
+    intra = {e.key: (_device_us(e) / 1000, e.count) for e in ka
+             if "intra" in e.key and _device_us(e) > 0}
+    return wall, busy, intra
+
+
+def _device_us(event):
+    """Device self time (us) of a torch.profiler key_averages() entry."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0))
+
+
+def device_ms(fn, kernel=None):
+    """Device ms of the kernels whose name contains `kernel` during fn(),
+    of all its device work (kernels and copies) when kernel is None
+    (torch.profiler, device activity only); None where the profiler sees
+    no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if kernel is None or kernel in e.key)
+    return us / 1000 if us > 0 else None
+
+
+def _add(a, b):
+    return None if a is None or b is None else a + b
+
+
+class IntraTrace:
+    """A picture's intra steps: each padded plane before its first step
+    (`initial`), the calls in order, and the planes after the picture."""
+
+    def __init__(self):
+        self.initial, self.final, self.calls = {}, {}, []
+
+    def record(self, padded, args, kw):
+        key = padded.data_ptr()
+        if key not in self.initial:
+            self.initial[key] = padded.clone()
+            self.final[key] = padded
+        self.calls.append((key, args, kw))
 
 
 def capture_inputs(fd, progs):
-    """Decode progs with every kernel wrapper recording (a clone of) its
-    arguments; returns {wrapper name: [(args, kwargs), ...]} per picture."""
+    """Decode progs with every kernel wrapper recording its arguments;
+    returns per picture {wrapper name: [(args, kwargs), ...]}, the intra
+    step as an IntraTrace under "intra_step".  Arguments are cloned, but
+    not the padded planes of the intra steps (the trace keeps them)."""
     import torch
-    coef, dbk, sao = kernel_modules()
-    mods = {"coef": coef, "dbk": dbk, "sao": sao}
     saved = {}
     per_frame = []
 
-    def wrap(mod, name, fn):
+    def wrap(name, fn):
         def rec(*args, **kwargs):
-            cl = [a.clone() if isinstance(a, torch.Tensor) else a
-                  for a in args]
-            kw = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
-                  for k, v in kwargs.items()}
-            per_frame[-1].setdefault(name, []).append((cl, kw))
+            if name == "intra_step":
+                per_frame[-1].setdefault(name, IntraTrace()).record(
+                    args[0], args[1:], dict(kwargs))
+            else:
+                cl = [a.clone() if isinstance(a, torch.Tensor) else a
+                      for a in args]
+                kw = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                      for k, v in kwargs.items()}
+                per_frame[-1].setdefault(name, []).append((cl, kw))
             return fn(*args, **kwargs)
         return rec
 
     for m, name in WRAPPERS:
-        fn = getattr(mods[m], name)
-        saved[(m, name)] = fn
-        setattr(mods[m], name, wrap(m, name, fn))
+        mod = ops_module(m)
+        saved[(m, name)] = getattr(mod, name)
+        setattr(mod, name, wrap(name, saved[(m, name)]))
     try:
         for prog in progs:
             per_frame.append({})
@@ -200,7 +384,7 @@ def capture_inputs(fd, progs):
         torch.cuda.synchronize()
     finally:
         for (m, name), fn in saved.items():
-            setattr(mods[m], name, fn)
+            setattr(ops_module(m), name, fn)
     return per_frame
 
 
@@ -230,17 +414,58 @@ def _csr_bin(rng, N, S):
     return cv.astype(np.uint32).view(np.int32), np.asarray(offs, np.int32)
 
 
+def _intra_records(rng, s, K, H, W, bd):
+    """One step of K disjoint blocks of size s on an H x W plane, about a
+    quarter of the slots invalid and scattered (valid ones do not lead):
+    meta [K, 5], aw [K, 5], resid [K, s, s] (numpy).  As in a real step, no
+    available border sample lies in a block of the same step, nor outside
+    the picture."""
+    nb, n2 = 4 * s + 1, 2 * s
+    gw, gh = W // s, H // s
+    cells = rng.permutation(gw * gh)[:K]
+    ys, xs = (cells // gw) * s, (cells % gw) * s
+    invalid = rng.random(K) < 0.25
+    occ = np.zeros((gh, gw), bool)
+    occ[ys[~invalid] // s, xs[~invalid] // s] = True
+    meta = np.zeros((K, 5), np.int64)
+    meta[:, 0] = rng.integers(0, 35, K)
+    meta[:, 1] = rng.integers(0, 4, K) if s < 32 else 0
+    meta[:, 2], meta[:, 3] = ys, xs
+    meta[:, 4] = ((rng.random(K) < 0.1) * 1 | (rng.random(K) < 0.6) * 2 |
+                  (rng.random(K) < 0.5) * 4 | 8)
+    j = np.arange(nb)
+    by = np.where(j < n2, ys[:, None] + n2 - 1 - j, ys[:, None] - 1)
+    bx = np.where(j <= n2, xs[:, None] - 1, xs[:, None] + j - n2 - 1)
+    inside = (by >= 0) & (by < H) & (bx >= 0) & (bx < W)
+    busy = occ[np.clip(by, 0, H - 1) // s, np.clip(bx, 0, W - 1) // s]
+    av = ((rng.random((K, nb)) < 0.8) | (rng.random((K, 1)) < 0.4)) & \
+        inside & ~busy
+    aw = np.packbits(np.pad(av, ((0, 0), (0, 160 - nb))), axis=1,
+                     bitorder="little").view(np.int32).astype(np.int64)
+    meta[invalid] = 0
+    aw[invalid] = 0
+    sc = 1 << (bd - 8)
+    resid = rng.integers(-40 * sc, 41 * sc, (K, s, s))
+    return meta, aw, resid
+
+
 def random_cases(dev):
     """Seeded random inputs at the 1080p main-path shapes:
     {wrapper name: [(args, kwargs), ...]}."""
     import torch
+    from libde265_tpu_torch.feed import WAVE_CAP
+    from libde265_tpu_torch.ops import intra_window as iw
+    from libde265_tpu_torch.ops.intra_wave import build_mode_tables
     rng = np.random.default_rng(2024)
 
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    def t(a, dtype=None):
+        a = np.ascontiguousarray(a)
+        if dtype is not None:
+            a = a.astype(dtype)
+        return torch.from_numpy(a).to(dev)
 
     H, W, bd = 1088, 1920, 8
-    cases = {name: [] for _, name in WRAPPERS}
+    cases = {name: [] for name in FAMILY}
     for S, N in ((4, 4096), (8, 2048), (16, 512), (32, 128)):
         cv, coff = _csr_bin(rng, N, S)
         cases["densify_bin"].append(((t(cv), t(coff)), {"N": N, "S": S}))
@@ -285,13 +510,44 @@ def random_cases(dev):
         kw = {"bit_depth": 8,
               "edge_ok": t(rng.random((H, W)) > 0.1) if edge_ok else None}
         cases["sao_plane_fused"].append((args, kw))
+
+    # the intra kernels: the padded 1080p luma plane, K = WAVE_CAP[lg]
+    hp, wp = iw.scan_pad_sizes(H, W)
+    yy, xx = np.mgrid[0:H, 0:W]
+    for s in (4, 8, 16, 32):
+        K = WAVE_CAP[s.bit_length() - 1]
+        tabs = tuple(t(a) for a in build_mode_tables(s))
+        for ibd in (8, 10):
+            sc = 1 << (ibd - 8)
+            plane = ((60 + yy // 2 + xx // 3) * sc +
+                     rng.integers(0, 3 * sc, (H, W))) % (1 << ibd)
+            padded = iw.pad_plane_for_scan(t(plane, np.int32), hp, wp)
+            meta, aw, resid = _intra_records(rng, s, K, H, W, ibd)
+            y0p = t(meta[:, 2] + iw.PAD_T, np.int32)
+            x0p = t(meta[:, 3] + iw.PAD_L, np.int32)
+            valid = t((meta[:, 4] & 8) != 0)
+            rrow = np.arange(K)[::-1].copy()
+            rrow[rng.random(K) < 0.2] = -1
+            step_args = (t(np.stack([np.zeros_like(meta), meta]), np.int32),
+                         t(np.stack([np.full(K, -1), rrow]), np.int32),
+                         t(np.stack([np.zeros_like(aw), aw]), np.int32), 1,
+                         t(resid, np.int32), *tabs)
+            cases["intra_step"].append(((padded, *step_args),
+                                        {"s": s, "bit_depth": ibd}))
+            nvalid = int(rng.integers(K // 2, K + 1))
+            cases["border_gather"].append(((padded, y0p, x0p, nvalid),
+                                           {"s": s}))
+            cases["window_scatter"].append(
+                ((padded, t(resid + 500, np.int32), y0p, x0p, valid),
+                 {"s": s}))
     return cases
 
 
 def plain_of(name):
     """The plain PyTorch version of a wrapper (run on the same device)."""
     import torch
-    from libde265_tpu_torch.ops import coef_cuda
+    from libde265_tpu_torch.ops import coef_cuda, intra_cuda
+    from libde265_tpu_torch.ops import intra_window as iw
     from libde265_tpu_torch.ops.deblock import _chroma_pass, _luma_pass
     from libde265_tpu_torch.ops.sao import sao_plane
 
@@ -312,13 +568,17 @@ def plain_of(name):
             torch.stack([_chroma_pass(imgs[c].T, tcs[c].T, no_p.T, no_q.T,
                                       bit_depth, cols_per_seg).T
                          for c in range(2)])
+    if name == "border_gather":
+        return iw.border_gather_plain
+    if name == "window_scatter":
+        return iw.window_scatter_plain
+    if name == "intra_step":
+        return intra_cuda.intra_step_plain
     return sao_plane
 
 
 def kernel_of(name):
-    coef, dbk, sao = kernel_modules()
-    return getattr({"densify_bin": coef, "sao_plane_fused": sao}.get(
-        name, dbk), name)
+    return getattr(ops_module(MODULE[name]), name)
 
 
 def median_ms(fn, reps=25, warm=3):
@@ -337,50 +597,212 @@ def median_ms(fn, reps=25, warm=3):
     return statistics.median(ts)
 
 
-FAMILY = {"densify_bin": 0, "luma_pass": 1, "luma_pass_h": 1,
-          "chroma_pass_stacked": 2, "chroma_pass_stacked_h": 2,
-          "sao_plane_fused": 3}
-
-
-def compare_kernels(case_sets, timed):
-    """Exact kernel-vs-plain comparison on every case; times (kernel, plain)
-    summed per family over the calls of one picture (`timed`)."""
+def _tensors(x):
     import torch
-    names = list(KERNELS)
-    err = {n: 0 for n in names}
-    ncases = {n: 0 for n in names}
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for a in x for t in _tensors(a)]
+    if isinstance(x, dict):
+        return _tensors(list(x.values()))
+    return []
+
+
+def _nbytes(x):
+    return sum(t.numel() * t.element_size() for t in _tensors(x))
+
+
+def _call(fn, name, args, kw):
+    """fn(*args, **kw) on a copy of the plane that an in-place kernel
+    updates, so every call sees the same inputs."""
+    if name in INPLACE:
+        args = (args[0].clone(), *args[1:])
+    return fn(*args, **kw)
+
+
+def _max_err(got, want, what):
+    got, want = _tensors(got), _tensors(want)
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} outputs vs {len(want)}")
+    e = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            raise AssertionError(f"{what}: shape {tuple(g.shape)} vs "
+                                 f"{tuple(w.shape)}")
+        if g.numel():
+            e = max(e, int((g.long() - w.long()).abs().max().item()))
+    return e
+
+
+def compare_kernels(case_sets):
+    """Exact kernel-vs-plain comparison on every case: (max error, number
+    of cases) per family."""
+    import torch
+    err = {n: 0 for n in NAMES}
+    ncases = {n: 0 for n in NAMES}
     for label, cases in case_sets:
         for name, calls in cases.items():
-            fam = names[FAMILY[name]]
+            if name == "intra_step" and isinstance(calls, IntraTrace):
+                continue    # a picture's step sequence: compare_intra_trace
+            fam = FAMILY[name]
             for args, kw in calls:
-                got = kernel_of(name)(*args, **kw)
-                want = plain_of(name)(*args, **kw)
+                got = _call(kernel_of(name), name, args, kw)
+                want = _call(plain_of(name), name, args, kw)
                 torch.cuda.synchronize()
-                if got.shape != want.shape:
-                    raise AssertionError(f"{name} ({label}): shape "
-                                         f"{tuple(got.shape)} vs "
-                                         f"{tuple(want.shape)}")
-                e = int((got.long() - want.long()).abs().max().item()) \
-                    if got.numel() else 0
+                e = _max_err(got, want, f"{name} ({label})")
                 err[fam] = max(err[fam], e)
                 ncases[fam] += 1
                 if e != 0:
                     raise AssertionError(f"{name} ({label}): kernel differs "
                                          f"from the plain version by {e}")
-    ms = {n: 0.0 for n in names}
-    plain_ms = {n: 0.0 for n in names}
+    return err, ncases
+
+
+def _bound(fam, nbytes, nout):
+    """(bound ms, what bounds it): bytes over the memory rate against
+    integer operations over the peak rate outside the tensor cores."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = nout * ALL[fam][4] / INT_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def time_calls(timed):
+    """Kernel and plain ms summed per family over one picture's calls
+    (CUDA events: plain, kernel, kernel, plain per call; the lower of each
+    pair), the call's device ms (torch.profiler: the kernel and the copy of
+    the plane that a deblock wrapper returns) and the bound of the same
+    work (each input read once, each output written once)."""
+    ms = {}
     for name, calls in timed.items():
-        fam = names[FAMILY[name]]
+        if name == "intra_step" and isinstance(calls, IntraTrace):
+            continue
+        fam = FAMILY[name]
         for args, kw in calls:
             k, p = kernel_of(name), plain_of(name)
-            # plain, kernel, kernel, plain: both halves see the same card
-            t_p1 = median_ms(lambda: p(*args, **kw))
-            t_k1 = median_ms(lambda: k(*args, **kw))
-            t_k2 = median_ms(lambda: k(*args, **kw))
-            t_p2 = median_ms(lambda: p(*args, **kw))
-            ms[fam] += min(t_k1, t_k2)
-            plain_ms[fam] += min(t_p1, t_p2)
-    return err, ncases, ms, plain_ms
+            t_p1 = median_ms(lambda: _call(p, name, args, kw))
+            t_k1 = median_ms(lambda: _call(k, name, args, kw))
+            t_k2 = median_ms(lambda: _call(k, name, args, kw))
+            t_p2 = median_ms(lambda: _call(p, name, args, kw))
+            t_dev = device_ms(lambda: _call(k, name, args, kw))
+            out = _call(k, name, args, kw)
+            row = ms.setdefault(fam, [0.0, 0.0, 0, 0, 0, 0.0])
+            row[5] = _add(row[5], t_dev)
+            row[0] += min(t_k1, t_k2)
+            row[1] += min(t_p1, t_p2)
+            row[2] += _nbytes(args) + _nbytes(kw) + _nbytes(out)
+            row[3] += sum(t.numel() for t in _tensors(out))
+            row[4] += 1
+    return ms
+
+
+def _step_views(trace):
+    """Per call of an intra trace: (plane key, s, meta [K, 5] on the
+    device, the same on the host, rrow row on the host)."""
+    cache = {}
+    out = []
+    for key, args, kw in trace.calls:
+        meta_all, rrow_all, step = args[0], args[1], args[3]
+        if id(meta_all) not in cache:
+            cache[id(meta_all)] = (meta_all.cpu().numpy(),
+                                   rrow_all.cpu().numpy())
+        hm, hr = cache[id(meta_all)]
+        out.append((key, kw["s"], meta_all[step], hm[step], hr[step]))
+    return out
+
+
+def compare_intra_trace(trace, err, ncases, ms):
+    """The first I picture's intra work, three ways, each against its
+    plain version and against the decode's own planes:
+      * the fused step: the whole step sequence replayed from the planes
+        before the first step;
+      * B6: every step's borders gathered from the planes after the
+        picture;
+      * B7: every step's valid blocks, read back from the planes after the
+        picture, scattered onto the planes before the first step (which
+        must then equal the planes after it).
+    Times are one pass over the picture's calls, CUDA events for the kernel
+    and the plain version alike (plain, kernel, kernel, plain; the lower of
+    each pair), and the kernel's device time (torch.profiler).  At a few
+    microseconds a kernel the event-timed pass measures the host's launch
+    loop, the device time the kernels alone."""
+    import torch
+    from libde265_tpu_torch.ops import intra_window as iw
+
+    def replay(fn):
+        planes = {k: p.clone() for k, p in trace.initial.items()}
+        for key, args, kw in trace.calls:
+            fn(planes[key], *args, **kw)
+        return planes
+
+    views = _step_views(trace)
+    b6, b7 = [], []
+    for key, s, meta, hm, _ in views:
+        fin = trace.final[key]
+        y0p = (meta[:, 2] + iw.PAD_T).contiguous()
+        x0p = (meta[:, 3] + iw.PAD_L).contiguous()
+        ar = torch.arange(s, device=meta.device)
+        rows = (y0p[:, None, None] + ar[None, :, None]).clamp(
+            0, fin.shape[0] - 1).long()
+        cols = (x0p[:, None, None] + ar[None, None, :]).clamp(
+            0, fin.shape[1] - 1).long()
+        b6.append((key, (y0p, x0p, meta.shape[0]), {"s": s}))
+        b7.append((key, (fin[rows, cols].contiguous(), y0p, x0p,
+                         (meta[:, 4] & 8) != 0), {"s": s}))
+
+    def gather_all(fn):
+        return [fn(trace.final[key], *a, **kw) for key, a, kw in b6]
+
+    def scatter_all(fn):
+        planes = {k: p.clone() for k, p in trace.initial.items()}
+        for key, a, kw in b7:
+            fn(planes[key], *a, **kw)
+        return planes
+
+    runs = {    # the device time counts the named kernel, not the copies
+        STEP: (lambda: replay(kernel_of("intra_step")),
+               lambda: replay(plain_of("intra_step")), "intra_step_kernel"),
+        B6: (lambda: gather_all(kernel_of("border_gather")),
+             lambda: gather_all(plain_of("border_gather")),
+             "border_gather_kernel"),
+        B7: (lambda: scatter_all(kernel_of("window_scatter")),
+             lambda: scatter_all(plain_of("window_scatter")),
+             "window_scatter_kernel"),
+    }
+    for fam, (kern, plain, kname) in runs.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        e = _max_err(got if isinstance(got, list) else list(got.values()),
+                     want if isinstance(want, list) else list(want.values()),
+                     f"{fam} (first I picture)")
+        if fam != B6:    # the planes after the picture, as decoded
+            e = max(e, _max_err(list(got.values()),
+                                list(trace.final.values()),
+                                f"{fam} vs the decode"))
+        err[fam] = max(err[fam], e)
+        ncases[fam] += len(trace.calls)
+        if e != 0:
+            raise AssertionError(f"{fam} (first I picture): differs by {e}")
+        t_p1 = median_ms(plain, reps=1, warm=0)
+        t_k1 = median_ms(kern, reps=5, warm=1)
+        t_k2 = median_ms(kern, reps=5, warm=0)
+        t_p2 = median_ms(plain, reps=1, warm=0)
+        ms[fam] = [min(t_k1, t_k2), min(t_p1, t_p2), 0, 0, len(trace.calls),
+                   device_ms(kern, kname)]
+
+    # bytes each function must move on this picture's data
+    for (key, s, meta, hm, hr) in views:
+        K, nb, ss = meta.shape[0], 4 * s + 1, s * s
+        valid = (hm[:, 4] & 8) != 0
+        nv = int(valid.sum())
+        nres = int((valid & (hr >= 0)).sum())
+        nmodes = len(set(hm[valid & (hm[:, 0] >= 2), 0].tolist()))
+        ms[B6][2] += 4 * (2 * K + 2 * K * nb)
+        ms[B6][3] += K * nb
+        ms[B7][2] += 4 * (2 * K + 2 * nv * ss) + K
+        ms[B7][3] += nv * ss
+        ms[STEP][2] += 4 * (5 * K + nv * (5 + 1 + nb) + nres * ss +
+                            3 * nmodes * ss + nv * ss)
+        ms[STEP][3] += nv * ss
 
 
 # ---------------------------------------------------------------------------
@@ -398,7 +820,10 @@ def main():
     _build.lib()
     t_kern = time.perf_counter() - t0
     log(f"build: native library {t_native:.1f} s, CUDA kernels "
-        f"{t_kern:.1f} s (nvcc {_build.build_seconds} s)")
+        f"{t_kern:.1f} s (parallel nvcc + link {_build.build_seconds} s)")
+    for line in _build.build_log.splitlines():
+        if "intra" in line or "registers" in line:
+            log(f"  ptxas: {line.strip()}")
 
     import libde265_tpu_torch as lt
     dev = torch.device("cuda")
@@ -408,70 +833,89 @@ def main():
     data, t_enc = make_stream(BUILD / "chip_smoke" / f"1080p_{frames}f.h265",
                               1920, 1088, frames, 32,
                               {"intra-period": 4, "sao": True})
-    log(f"stream: 1920x1088, {frames} frames, {len(data)} bytes, encoded in "
-        f"{t_enc:.1f} s")
+    log(f"stream: 1920x1088 P-GOP, {frames} frames, {len(data)} bytes, "
+        f"encoded in {t_enc:.1f} s")
+    idata, t_enc = make_stream(BUILD / "chip_smoke" / "1080p_intra_4f.h265",
+                               1920, 1088, 4, 32,
+                               {"intra-period": 1, "sao": True})
+    log(f"stream: 1920x1088 all-intra, 4 frames, {len(idata)} bytes, "
+        f"encoded in {t_enc:.1f} s")
     _, progs = oracle_programs(data)
+    _, iprogs = oracle_programs(idata)
     is_intra = [len(p.pus) == 0 for p in progs]
+    first_i, first_p = is_intra.index(True), is_intra.index(False)
+    if not all(len(p.pus) == 0 for p in iprogs):
+        raise AssertionError("the all-intra stream has inter pictures")
 
-    warm = lt.PipelinedDecoder(device=dev)     # CUDA / cuBLAS set-up
+    warm = lt.PipelinedDecoder()               # CUDA / cuBLAS set-up
+    if warm.fd.device.type != "cuda":
+        raise AssertionError(f"default device {warm.fd.device}")
     warm.decode_stream(data)
     torch.cuda.synchronize()
 
-    pd = lt.PipelinedDecoder(device=dev)
-    reset_counts()
-    t0 = time.perf_counter()
-    outs = pd.decode_stream(data)
-    torch.cuda.synchronize()
-    t_e2e = time.perf_counter() - t0
-    counts = read_counts()
-    assert_bit_exact(outs, progs, "1080p")
-    for name, n in counts.items():
-        if n < frames:
-            raise AssertionError(f"{name}: {n} launches in {frames} frames")
-    log(f"1080p main path: {frames} frames bit-exact; e2e "
-        f"{frames / t_e2e:.3f} fps ({1000 * t_e2e / frames:.1f} ms/frame) "
-        f"on {smi}")
-    log(f"launches in the main-path run: {json.dumps(counts)}")
+    runs = [main_path_run("1080p P-GOP", data, progs),
+            main_path_run("1080p all-intra", idata, iprogs)]
+    counts = {n: sum(r[0][n] for r in runs) for n in NAMES}
+    for n in KERNELS:
+        if counts[n] == 0:
+            raise AssertionError(f"{n}: no launch on the main path")
+    log(f"launches in the main-path runs: {json.dumps(counts)}")
 
-    # per-frame synced times (I/P split)
-    fd = lt.FusedDecoder(device=dev)
-    fd.plan_stream(progs)
-    per = []
-    for p in progs:
-        t0 = time.perf_counter()
-        fd.decode(p)
-        torch.cuda.synchronize()
-        per.append(1000 * (time.perf_counter() - t0))
-    ims = [m for m, i in zip(per, is_intra) if i]
-    pms = [m for m, i in zip(per, is_intra) if not i]
-    log(f"per-frame ms (synced): {[round(m, 1) for m in per]}; I median "
-        f"{statistics.median(ims) if ims else 'n/a'}, P median "
-        f"{statistics.median(pms) if pms else 'n/a'} on {smi}")
-    del outs, fd
+    # per-picture synced times and launches (I/P split)
+    for what, pp in (("P-GOP", progs), ("all-intra", iprogs)):
+        rows = per_picture(pp)
+        for kind, want in (("I", True), ("P", False)):
+            sel = [r for r in rows if r[2] == want]
+            if not sel:
+                continue
+            med = statistics.median(r[0] for r in sel)
+            log(f"{what}: {kind} pictures ms (synced) "
+                f"{[round(r[0], 2) for r in sel]}, median {med:.2f}; "
+                f"launches per picture {json.dumps(sel[0][1])} on {smi}")
+
+    for what, pp, idx in (("P-GOP I", progs, first_i),
+                          ("P-GOP P", progs, first_p),
+                          ("all-intra", iprogs, 1)):
+        spent = {k: round(v, 2) for k, v in section_ms(pp, idx).items()}
+        log(f"sections of {what} picture {idx} (synced ms): "
+            f"{json.dumps(spent)} on {smi}")
+    wall, busy, intra = profile_picture(iprogs, 1)
+    if busy > 0:
+        log(f"profiled all-intra picture 1: wall {wall:.2f} ms, device busy "
+            f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}; intra kernels "
+            f"(device ms, launches) {json.dumps(intra)} on {smi}")
+    else:
+        log("profiled all-intra picture 1: the profiler saw no device "
+            "time; idle share not measured")
 
     # ---- phase 4: kernels vs plain on the card ----
-    first_i = is_intra.index(True)
-    first_p = is_intra.index(False)
     fd = lt.FusedDecoder(device=dev)
     fd.plan_stream(progs)
     caps = capture_inputs(fd, progs[:first_p + 1])
     del fd
-    err, ncases, ms, plain_ms = compare_kernels(
+    err, ncases = compare_kernels(
         [("random", random_cases(dev)),
          (f"frame {first_i} (I)", caps[first_i]),
-         (f"frame {first_p} (P)", caps[first_p])],
-        caps[first_p])
-    for n in KERNELS:
+         (f"frame {first_p} (P)", caps[first_p])])
+    ms = time_calls(caps[first_p])
+    compare_intra_trace(caps[first_i]["intra_step"], err, ncases, ms)
+    del caps
+    for n in NAMES:
+        k_ms, p_ms, nbytes, nout, ncalls, d_ms = ms[n]
+        bound_ms, _ = _bound(n, nbytes, nout)
+        pic = "I" if n in INTRA else "P"
+        dev_txt = "not measured" if d_ms is None else f"{d_ms:.4f} ms"
         log(f"{n}: {ncases[n]} cases equal to the plain version (tolerance "
-            f"0, integer); P-frame {ms[n]:.4f} ms vs plain {plain_ms[n]:.4f} "
-            f"ms on {smi}")
+            f"0, integer); {pic}-picture ({ncalls} calls) {k_ms:.4f} ms "
+            f"(CUDA events; device time {dev_txt}) vs plain {p_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({nbytes} bytes) on {smi}")
 
     # ---- phase 5: small B / weighted / 2-ref stream ----
     bdata, _ = make_stream(BUILD / "chip_smoke" / "416x240_bw.h265", 416, 240,
                            8, 30, {"intra-period": 8, "b-slices": True,
                                    "weighted-pred": True, "num-refs": 2})
     _, bprogs = oracle_programs(bdata)
-    bouts = lt.PipelinedDecoder(device=dev).decode_stream(bdata)
+    bouts = lt.PipelinedDecoder().decode_stream(bdata)
     torch.cuda.synchronize()
     assert_bit_exact(bouts, bprogs, "416x240 B/weighted")
     n_bi = sum(int((p.pus["pred_flags"] == 3).sum()) for p in bprogs
@@ -479,15 +923,22 @@ def main():
     log(f"416x240 B/weighted/2-ref: {len(bprogs)} frames bit-exact "
         f"({n_bi} bi-predicted PUs)")
 
-    jax_mods = sorted(m for m in sys.modules
-                      if m == "jax" or m.startswith("jax."))
-    if jax_mods:
-        raise AssertionError(f"the port imported JAX: {jax_mods[:5]}")
+    bad = sorted(m for m in sys.modules
+                 if m in ("jax", "libde265_tpu") or
+                 m.startswith(("jax.", "jaxlib", "libde265_tpu.")))
+    if bad:
+        raise AssertionError(f"the port imported JAX or libde265_tpu: "
+                             f"{bad[:5]}")
 
-    kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
-                "launches": counts[n], "max_abs_err": err[n], "ms": ms[n],
-                "plain_ms": plain_ms[n]}
-               for n, (src, rep) in KERNELS.items()]
+    kernels = []
+    for n, (src, rep, *_) in KERNELS.items():
+        bound_ms, bound_by = _bound(n, ms[n][2], ms[n][3])
+        kernels.append({"name": n, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": counts[n],
+                        "max_abs_err": err[n], "ms": ms[n][0],
+                        "ms_device": ms[n][5], "plain_ms": ms[n][1],
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,14 @@
 """libde265_tpu_torch: the PyTorch + CUDA port of libde265_tpu's device
 decode.
 
-It reuses the JAX-free parts of ``libde265_tpu`` as they are (the ctypes
-bindings of the native parser and encoder, ``libde265_tpu.decoder``,
-``encoder``, ``_native`` and the numpy ``ops.intra``) and never imports
-JAX.  The whole-picture program is PyTorch; its coefficient densify,
-deblocking and SAO stages are hand-written CUDA kernels for Hopper
-(``csrc/``), built with nvcc at first use.  On CPU tensors every kernel runs
-its plain PyTorch version.
+It imports neither JAX nor ``libde265_tpu``: the ctypes bindings of the
+native parser and encoder (``decoder``, ``encoder``, ``_native``,
+``profiles``) and the angle tables of ``ops.intra`` are copies of the JAX
+package's JAX-free modules.  The whole-picture program is PyTorch; its
+coefficient densify, intra super-wave step, deblocking and SAO stages are
+hand-written CUDA kernels for Hopper (``csrc/``), built with nvcc at first
+use.  The decoders run on the CUDA card unless given ``device="cpu"``; on
+CPU tensors every kernel runs its plain PyTorch version.
 
 Float32 matrix products would not be exact for the transform sums, so the
 port runs them in float64 and keeps TF32 off: the two flags below are set
@@ -16,8 +17,8 @@ when the package is imported.
 
 import torch
 
-from libde265_tpu.decoder import Decoder, FrameProgramData  # noqa: F401
-from libde265_tpu.encoder import Encoder  # noqa: F401
+from .decoder import Decoder, FrameProgramData  # noqa: F401
+from .encoder import Encoder  # noqa: F401
 
 from .fused_decode import FusedDecoder  # noqa: F401
 from .stream import PipelinedDecoder  # noqa: F401

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from libde265_tpu.decoder import TU_INTRA, TU_RDPCM, FrameProgramData
+from .decoder import TU_INTRA, TU_RDPCM, FrameProgramData
 
 MAX_REFS = 8
 NOREF = -(10 ** 6)

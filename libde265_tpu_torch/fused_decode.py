@@ -1,11 +1,14 @@
 """Whole-picture decode on one device: the PyTorch port of
-``libde265_tpu/fused_decode.py`` (its ``use_pallas_mc=False`` program).
+``libde265_tpu/fused_decode.py`` (its ``use_pallas_mc=False`` program,
+with the intra scan in its ``pallas_intra`` formulation).
 
 Per picture the host packs one int32 feed buffer plus a layout (``feed``),
 uploads it as one tensor, and ``_compiled_impl`` runs the picture in the
 order of the JAX program: per-cell PU gather, motion compensation,
 coefficient densify (kernel B4), dequant + IDCT, residual add, PCM, the
-intra super-wave scan, deblocking (kernels B8, B9) and SAO (kernel B10).
+intra super-wave scan on padded planes (one fused kernel per step and size
+bin, holding kernels B6 and B7), deblocking (kernels B8, B9) and SAO
+(kernel B10).
 Decoded planes stay on the device and serve as references of later
 pictures.
 
@@ -29,18 +32,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libde265_tpu.decoder import (TU_TQ_BYPASS, TU_TRANSFORM_SKIP, TU_USE_DST,
-                                  FrameProgramData)
+from .decoder import (TU_TQ_BYPASS, TU_TRANSFORM_SKIP, TU_USE_DST,
+                      FrameProgramData)
 
 from . import feed as fdp
 from .feed import AVAIL_WORDS, MAX_REFS, NOREF, WAVE_CAP, FeedPacker
 from .frame_helpers import (_cells_to_plane, _chroma_qp_map,
                             _edge_params_jnp, _mc_plane, _merge,
                             _pad_edge0_cols)
-from .ops import coef_cuda, deblock_cuda, sao_cuda
+from .ops import coef_cuda, deblock_cuda, intra_cuda, sao_cuda
 from .ops import deblock as dbk
+from .ops import intra_window as iw
 from .ops import transform as tx
-from .ops.intra_wave import build_mode_tables
+from .ops.intra_wave import build_mode_tables, wave_predict
 from .ops.mc import EPEL_FILTERS, QPEL_FILTERS
 from .ops.sao import EO_D
 
@@ -294,8 +298,8 @@ def _frame_fn(refs_y, refs_cb, refs_cr, feed, sf_tables, st, host):
         bins_by_plane = _scatter_intra_bins(feed["irec"], host["irec"],
                                             st["intra_bins"],
                                             st["steps_cap"])
-        planes = _intra_scan_all_inner(planes, bins_by_plane, bin_res, st,
-                                       host["nsteps"])
+        planes = _intra_scan_all(planes, bins_by_plane, bin_res, st,
+                                 host["nsteps"])
 
     # ---- loop filters ----
     skip4 = (feed["cu4"] & 4) != 0
@@ -421,34 +425,66 @@ def _scatter_intra_bins(irec, irec_host, intra_bins, scap: int):
     return out
 
 
-def _intra_scan_all_inner(planes, bins_by_plane, bin_res, st, nsteps):
-    """Replay the super-wave steps, all planes advancing together.  The
-    step count and each bin's depth are host values: a step beyond a bin's
-    depth for this picture is skipped without touching the device."""
+def _scan_steps(bins_by_plane, n_planes, nsteps, dev, step_fn):
+    """Replay the super-wave steps, all planes advancing together: step,
+    then plane, then size bin ascending, step_fn(c, lg, bin, i, tables)
+    for each.  The step count and each bin's depth are host values: a step
+    beyond a bin's depth for this picture is skipped without touching the
+    device."""
     lgs_all = sorted({lg for b in bins_by_plane.values() for lg in b})
-    dev = planes[0].device
     tables = {lg: tuple(_i32(t, dev) for t in build_mode_tables(1 << lg))
               for lg in lgs_all}
     total = int(np.max(nsteps)) if len(nsteps) else 0
+    for i in range(total):
+        for c in sorted(bins_by_plane):
+            if c >= n_planes:
+                continue
+            for lg in sorted(bins_by_plane[c]):
+                v = bins_by_plane[c][lg]
+                if i < v["depth"]:
+                    step_fn(c, lg, v, i, tables[lg])
+
+
+def _intra_scan_all(planes, bins_by_plane, bin_res, st, nsteps):
+    """The intra scan.  With st["pallas_intra"] (the decoder's setting, as
+    on the JAX device path) each plane is padded once, every step runs on
+    the padded planes as one fused kernel launch (intra_cuda.intra_step),
+    and the planes are unpadded at the end; else the unpadded
+    gather/scatter formulation."""
+    if not st.get("pallas_intra", False):
+        return _intra_scan_all_inner(planes, bins_by_plane, bin_res, st,
+                                     nsteps)
+    shapes = [p.shape for p in planes]
+    padded = [iw.pad_plane_for_scan(p, *iw.scan_pad_sizes(*p.shape))
+              for p in planes]
+
+    def run(c, lg, v, i, tabs):
+        intra_cuda.intra_step(padded[c], v["meta"], v["rrow"], v["aw"], i,
+                              bin_res[lg], *tabs, s=1 << lg,
+                              bit_depth=st["bd"] if c == 0 else st["bdc"])
+
+    _scan_steps(bins_by_plane, len(planes), nsteps, planes[0].device, run)
+    return [iw.unpad_plane(p, *shp) for p, shp in zip(padded, shapes)]
+
+
+def _intra_scan_all_inner(planes, bins_by_plane, bin_res, st, nsteps):
+    """The scan on the unpadded planes (_wave_step's clamped gather and
+    scratch-element scatter)."""
     # planes as flat buffers with a trailing scratch element for the scatter
     shapes = [p.shape for p in planes]
     flats = [torch.cat([p.reshape(-1), p.new_zeros(1)]) for p in planes]
-    for i in range(total):
-        for c in sorted(bins_by_plane):
-            if c >= len(flats):
-                continue
-            bd = st["bd"] if c == 0 else st["bdc"]
-            for lg in sorted(bins_by_plane[c]):
-                v = bins_by_plane[c][lg]
-                if i >= v["depth"]:
-                    continue
-                rrow = v["rrow"][i]
-                res = bin_res[lg]
-                resid = torch.where(
-                    (rrow >= 0)[:, None, None],
-                    res[rrow.long().clamp(0, res.shape[0] - 1)], 0)
-                _wave_step(flats[c], shapes[c], v["meta"][i], v["aw"][i],
-                           resid, *tables[lg], s=1 << lg, bit_depth=bd)
+
+    def run(c, lg, v, i, tabs):
+        rrow = v["rrow"][i]
+        res = bin_res[lg]
+        resid = torch.where(
+            (rrow >= 0)[:, None, None],
+            res[rrow.long().clamp(0, res.shape[0] - 1)], 0)
+        _wave_step(flats[c], shapes[c], v["meta"][i], v["aw"][i], resid,
+                   *tabs, s=1 << lg,
+                   bit_depth=st["bd"] if c == 0 else st["bdc"])
+
+    _scan_steps(bins_by_plane, len(planes), nsteps, planes[0].device, run)
     return [f[:-1].view(shp) for f, shp in zip(flats, shapes)]
 
 
@@ -463,119 +499,25 @@ def _wave_body(plane, meta, aw, resid, P0, P1, WT, s: int, bit_depth: int):
 def _wave_step(flat, shape, meta, aw, resid, P0, P1, WT, s: int,
                bit_depth: int):
     """_wave_body on a flat plane buffer with a trailing scratch element,
-    updated in place.  Same math as ops.intra_wave.intra_wave_kernel (spec
-    8.4.4.2): the border gather positions are pure geometry and the
-    substitution chain (8.4.4.2.2) is re-derived from the availability
-    bits; the angular fetch is an integer gather."""
+    updated in place: the border gather of the unpadded plane (pure
+    geometry, clamped), ops.intra_wave.wave_predict, and the store of the
+    valid blocks."""
     Hc, Wc = shape
     dev = flat.device
     w = torch.where
-    mode, edge, y0, x0 = meta[:, 0], meta[:, 1], meta[:, 2], meta[:, 3]
-    unavail = (meta[:, 4] & 1) != 0
-    filt = (meta[:, 4] & 2) != 0
-    strong = (meta[:, 4] & 4) != 0
+    y0, x0 = meta[:, 2], meta[:, 3]
     valid = (meta[:, 4] & 8) != 0
-    N = mode.shape[0]
     n2 = 2 * s
-    nb = 4 * s + 1
-    maxv = (1 << bit_depth) - 1
-    lg = s.bit_length() - 1
 
     # border geometry: k<2s left column (bottom->top), k=2s corner,
     # k>2s top row (left->right); clamps keep unavailable positions in
     # bounds (they are never used)
-    k = torch.arange(nb, device=dev)
+    k = torch.arange(4 * s + 1, device=dev)
     yy = w(k[None, :] < n2, y0[:, None] + (n2 - 1) - k[None, :],
            y0[:, None] - 1)
     xx = w(k[None, :] <= n2, x0[:, None] - 1, x0[:, None] + k[None, :] - n2 - 1)
     pos = yy.clamp(0, Hc - 1).long() * Wc + xx.clamp(0, Wc - 1).long()
-    b_raw = flat[pos]
-    # substitution: each sample takes the last available sample at or
-    # before it, else the first available one (jump-propagation ladders)
-    fil = ((aw[:, k >> 5] >> (k & 31)) & 1) != 0
-    b = w(fil, b_raw, 0)
-    sh = 1
-    while sh < nb:                       # fill-forward: nearest at-or-before
-        b = w(fil, b, torch.cat([b.new_zeros((N, sh)), b[:, :nb - sh]], 1))
-        fil = fil | torch.cat([fil.new_zeros((N, sh)), fil[:, :nb - sh]], 1)
-        sh *= 2
-    sh = 1
-    while sh < nb:                       # fill-backward: before the first
-        b = w(fil, b, torch.cat([b[:, sh:], b.new_zeros((N, sh))], 1))
-        fil = fil | torch.cat([fil[:, sh:], fil.new_zeros((N, sh))], 1)
-        sh *= 2
-    b = w(unavail[:, None], 1 << (bit_depth - 1), b)
-
-    corner = b[:, n2]
-    tap3 = b.clone()
-    tap3[:, 1:-1] = (b[:, :-2] + 2 * b[:, 1:-1] + b[:, 2:] + 2) >> 2
-    if s == 32:
-        thr = 1 << (bit_depth - 5)
-        bi_ok = (((corner + b[:, 4 * s] - 2 * b[:, n2 + s]).abs() < thr) &
-                 ((corner + b[:, 0] - 2 * b[:, s]).abs() < thr))
-        i = torch.arange(1, n2, device=dev, dtype=torch.int32)
-        bl = b[:, 0:1]
-        tr = b[:, 4 * s:4 * s + 1]
-        bilin = b.clone()
-        bilin[:, n2 - i] = ((n2 - i)[None, :] * corner[:, None] +
-                            i[None, :] * bl + 32) >> 6
-        bilin[:, n2 + i] = ((n2 - i)[None, :] * corner[:, None] +
-                            i[None, :] * tr + 32) >> 6
-        filtered = w((strong & bi_ok)[:, None], bilin,
-                     w(filt[:, None], tap3, b))
-    else:
-        filtered = w(filt[:, None], tap3, b)
-
-    left = filtered[:, :n2].flip(1)
-    top = filtered[:, n2 + 1:]
-    corner = filtered[:, n2]
-
-    xg = torch.arange(s, device=dev, dtype=torch.int32)[None, None, :]
-    yg = torch.arange(s, device=dev, dtype=torch.int32)[None, :, None]
-    planar = (((s - 1 - xg) * left[:, :s, None] +
-               (xg + 1) * top[:, s, None, None] +
-               (s - 1 - yg) * top[:, None, :s] +
-               (yg + 1) * left[:, s, None, None] + s) >> (lg + 1))
-
-    dc = ((left[:, :s].sum(1) + top[:, :s].sum(1) + s) >> (lg + 1)).to(
-        torch.int32)
-    dcp = dc[:, None, None].expand(N, s, s)
-    if s < 32:
-        dce = dcp.clone()
-        dce[:, 0, 1:] = (top[:, 1:s] + 3 * dc[:, None] + 2) >> 2
-        dce[:, 1:, 0] = (left[:, 1:s] + 3 * dc[:, None] + 2) >> 2
-        dce[:, 0, 0] = (left[:, 0] + 2 * dc + top[:, 0] + 2) >> 2
-        dcp = w((edge == 1)[:, None, None], dce, dcp)
-
-    # angular reference fetch: rows of the per-mode tables, then a gather
-    # along the filtered border.  Table entries outside the border (only
-    # ever paired with weight 0) read as 0, as the JAX one-hot product does.
-    mi = mode.long().clamp(0, 34)
-
-    def fetch(tab):
-        p = tab[mi].long()
-        inside = (p >= 0) & (p < nb)
-        return w(inside, torch.gather(filtered, 1, p.clamp(0, nb - 1)), 0)
-
-    g0 = fetch(P0)
-    g1 = fetch(P1)
-    wt = WT[mi]
-    ang = (((32 - wt) * g0 + wt * g1 + 16) >> 5).reshape(N, s, s)
-    if s < 32:
-        v26 = (top[:, 0, None] + ((left[:, :s] - corner[:, None]) >> 1)).clamp(
-            0, maxv)
-        v10 = (left[:, 0, None] + ((top[:, :s] - corner[:, None]) >> 1)).clamp(
-            0, maxv)
-        a26 = ang.clone()
-        a26[:, :, 0] = v26
-        ang = w((edge == 2)[:, None, None], a26, ang)
-        a10 = ang.clone()
-        a10[:, 0, :] = v10
-        ang = w((edge == 3)[:, None, None], a10, ang)
-
-    pred = w((mode == 0)[:, None, None], planar,
-             w((mode == 1)[:, None, None], dcp, ang))
-    out = (pred + resid).clamp(0, maxv)
+    out = wave_predict(flat[pos], meta, aw, resid, P0, P1, WT, s, bit_depth)
 
     # write the valid blocks (disjoint within a step); the rest goes to the
     # scratch element
@@ -770,15 +712,16 @@ def _sao_section(planes, feed, recs, skip4, st):
 # ---------------------------------------------------------------------------
 
 class FusedDecoder:
-    """One whole-picture program per picture on `device`.
+    """One whole-picture program per picture on `device` (the CUDA card
+    unless the caller asks for the CPU).
 
     Usage:
-        fd = FusedDecoder(device="cuda")
+        fd = FusedDecoder()
         fd.plan_stream(progs)       # optional: final capacities up front
         planes = fd.decode(prog)    # device tensors, also kept by POC
     """
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = torch.device(device)
         self.packer = FeedPacker()
         self.dpb = {}
@@ -873,6 +816,7 @@ class FusedDecoder:
             "run_sao": True,
             "steps_cap": pk.caps["steps"] or 1,
             "intra_bins": tuple(sorted(pk.intra_lgs)),
+            "pallas_intra": True,
         }
         dbuf = torch.from_numpy(buf).to(self.device)
         out = _compiled_impl(refs[0], refs[1], refs[2], dbuf, sft, st, layout,

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``libde265_tpu_torch/csrc``).
 
-The kernels are CUDA C++ with a plain C interface.  At first use, ``nvcc``
-compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library under
+The kernels are CUDA C++ with a plain C interface.  At first use, one
+``nvcc`` per ``csrc/*.cu``, all started together, compiles each source for
+``sm_90a``; the objects are linked into one shared library under
 ``build/libde265_tpu_torch/`` (named by a hash of the sources and flags, so
 an edited source rebuilds), and ``ctypes`` loads it with the argument types
 of every entry point declared.  Nothing here runs at import time.
@@ -21,7 +22,8 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "libde265_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P, _I, _L = ct.c_void_p, ct.c_int, ct.c_longlong
 # entry point -> argument types (pointers and the stream as void*)
@@ -32,11 +34,16 @@ SIGNATURES = {
     "tde_chroma_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I,
                         _L, _I, _P],
     "tde_sao_plane": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "tde_border_gather": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
+    "tde_window_scatter": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
+    "tde_intra_step": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _L, _I, _P, _I,
+                       _P, _P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()
 _lib = None
-build_seconds = None  # wall time of the last nvcc run in this process
+build_seconds = None  # wall time of the last build in this process
+build_log = ""        # ptxas resource usage of the last build
 
 
 def _nvcc() -> str:
@@ -55,7 +62,7 @@ def _sources():
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in sorted(_CSRC.iterdir()):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -64,19 +71,43 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless a library of the current sources exists."""
-    global build_seconds
+    global build_seconds, build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        obj = out.with_name(f"{out.stem}.{src.stem}.{tag}.o")
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        _, err = proc.communicate()
+        logs.append(f"{src.name}:\n{err}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc {src.name} failed ({proc.returncode}):\n"
+                          f"{err}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = out.with_name(f"{out.name}.{tag}")
+        r = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                            *map(str, objs)], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, out)
+    build_log = "\n".join(logs)
     return out
 
 

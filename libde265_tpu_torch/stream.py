@@ -14,7 +14,7 @@ import os
 import threading
 import time
 
-from libde265_tpu.decoder import Decoder
+from .decoder import Decoder
 
 from .fused_decode import FusedDecoder
 
@@ -23,14 +23,15 @@ _CHUNK = 1 << 16   # bytes pushed to the parser at a time
 
 
 class PipelinedDecoder:
-    """Stream decoder with parse/pack/execute overlap on `device`.
+    """Stream decoder with parse/pack/execute overlap on `device` (the
+    CUDA card unless the caller asks for the CPU).
 
     Usage::
-        pd = PipelinedDecoder(device="cuda")
+        pd = PipelinedDecoder()
         outs = pd.decode_stream(data)      # list of device plane tuples
     """
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.fd = FusedDecoder(device=device)
 
     def decode_stream(self, data: bytes):

@@ -47,6 +47,8 @@ GOPS = {
                            ("tmvp", True))),
     "2refs": dict(params=(("intra-period", 8), ("num-refs", 2))),
     "weighted": dict(params=(("intra-period", 8), ("weighted-pred", True))),
+    "all-intra": dict(w=64, h=64, n=3, params=(("intra-period", 1),
+                                                ("sao", True))),
     "10bit": dict(w=64, h=48, bit_depth=10,
                   params=(("intra-period", 4), ("sao", True))),
     "tiles": dict(w=128, h=96, params=(("intra-period", 4), ("sao", True),

@@ -2,10 +2,12 @@
 
 * frame level: the JAX program's captured per-picture inputs
   (refs, buf, sft, st, layout) go through the port's _compiled_impl, which
-  must return the JAX program's planes;
+  must return the JAX program's planes, as captured (the unpadded intra
+  scan) and with st["pallas_intra"] set (the padded-plane scan);
 * decoder level: FusedDecoder(device="cpu") and PipelinedDecoder equal the
-  scalar oracle (prog.planes) on P, B, 2-ref, weighted, 10-bit and
-  tiled/multi-slice GOPs;
+  scalar oracle (prog.planes) on P, B, 2-ref, weighted, 10-bit,
+  tiled/multi-slice and all-intra GOPs;
+* the entry points run on the CUDA card unless asked for the CPU;
 * state carried across pictures: one P picture decoded from the parser's
   reference planes alone, in both packages.
 """
@@ -61,12 +63,14 @@ def _jax_calls(stream):
     return progs, calls
 
 
-@pytest.mark.parametrize("stream", ["p-sao", "10bit"])
-def test_frame_program_matches_jax(native_build, stream):
+def _check_frame_programs(stream, pallas_intra):
     progs, calls = _jax_calls(stream)
     assert len(calls) == len(progs)
     for i, ((ry, rcb, rcr, buf, sft, st, layout), want) in enumerate(calls):
         assert not dict(st)["pallas_mc"]
+        assert not dict(st)["pallas_intra"]
+        if pallas_intra:
+            st = {**dict(st), "pallas_intra": True}
         got = tfd._compiled_impl(
             torch.from_numpy(ry), torch.from_numpy(rcb),
             torch.from_numpy(rcr), torch.from_numpy(buf),
@@ -80,12 +84,38 @@ def test_frame_program_matches_jax(native_build, stream):
                                           progs[i].planes[c])
 
 
+@pytest.mark.parametrize("stream", ["p-sao", "10bit"])
+def test_frame_program_matches_jax(native_build, stream):
+    _check_frame_programs(stream, pallas_intra=False)
+
+
+@pytest.mark.parametrize("stream", ["p-sao", "10bit"])
+def test_frame_program_pallas_intra_matches_jax(native_build, stream):
+    """The JAX planes of the unpadded scan; the JAX padded-plane scan gives
+    the same planes (tests/test_intra_window_pallas.py)."""
+    _check_frame_programs(stream, pallas_intra=True)
+
+
 @pytest.mark.parametrize("stream", list(GOPS))
 def test_fused_decoder_bit_exact(native_build, stream):
     _, progs = programs(gop_bytes(stream))
     fd = FusedDecoder(device="cpu")
     fd.plan_stream(progs)
     _assert_planes([fd.decode(p) for p in progs], progs)
+
+
+def test_fused_decoder_all_intra(native_build):
+    _, progs = programs(gop_bytes("all-intra"))
+    assert all(len(p.pus) == 0 for p in progs)
+    fd = FusedDecoder(device="cpu")
+    _assert_planes([fd.decode(p) for p in progs], progs)
+
+
+def test_entry_points_default_to_cuda():
+    """Constructing a decoder allocates nothing, so this needs no card."""
+    assert FusedDecoder().device.type == "cuda"
+    assert PipelinedDecoder().fd.device.type == "cuda"
+    assert FusedDecoder(device="cpu").device.type == "cpu"
 
 
 def test_fused_decoder_watermark_growth(native_build):

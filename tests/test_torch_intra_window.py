@@ -1,0 +1,301 @@
+"""Kernels B6 (border gather), B7 (window scatter) and the fused intra step
+of the port against the JAX package, bit-exact (tolerance 0: integers).
+
+The JAX side runs its Pallas kernels in interpret mode on the CPU
+(``ops/intra_window_pallas``, ``fused_decode._wave_body(pallas=True)``);
+the port's side runs the plain PyTorch versions.  The records are one
+super-wave step of K disjoint blocks on a 128x192 plane (K <= 16), the
+valid ones leading as the JAX gather requires; the `gpu`-marked tests
+hold each CUDA kernel against its plain version on the card.  The schedule
+test checks, on the intra records of real test streams, the invariant that
+lets the fused step read borders and store blocks in one launch.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from libde265_tpu import fused_decode as jfd
+from libde265_tpu.ops import intra_window_pallas as jiwp
+from libde265_tpu.ops.intra_wave import build_mode_tables as jtables
+
+from libde265_tpu_torch import FusedDecoder
+from libde265_tpu_torch import fused_decode as tfd
+from libde265_tpu_torch.ops import intra_cuda
+from libde265_tpu_torch.ops import intra_window as iw
+from libde265_tpu_torch.ops.intra_wave import build_mode_tables
+
+from _torch_common import cuda, gop_bytes, programs, t32  # noqa: F401
+
+H, W = 128, 192
+SIZES = [4, 8, 16, 32]
+
+
+def make_step(s, K, bit_depth=8, seed=0, partial=False):
+    """One step's records: (plane [H, W], meta [K, 5], aw [K, 5],
+    resid [K, s, s]).  Smooth plane plus noise (so the 32x32 bilinear
+    smoothing triggers); the corner blocks of the picture are included;
+    availability never covers out-of-picture samples (8.4.4.2.2) nor, as in
+    a real step, samples of the step's own valid blocks."""
+    rng = np.random.default_rng(seed * 97 + s + bit_depth)
+    nb, n2 = 4 * s + 1, 2 * s
+    sc = 1 << (bit_depth - 8)
+    yy, xx = np.mgrid[0:H, 0:W]
+    plane = ((60 + yy // 2 + xx // 3) * sc + rng.integers(0, 3 * sc, (H, W))
+             ) % (1 << bit_depth)
+    gw, gh = W // s, H // s
+    forced = [gw - 1, (gh - 1) * gw, gh * gw - 1]
+    cells = [c for c in rng.permutation(gw * gh) if c not in forced]
+    cells = np.array(forced + cells)[:K]
+    ys, xs = (cells // gw) * s, (cells % gw) * s
+    n_valid = K * 2 // 3 if partial else K
+    occ = np.zeros((H, W), bool)
+    for y, x in zip(ys[:n_valid], xs[:n_valid]):
+        occ[y:y + s, x:x + s] = True
+    meta = np.zeros((K, 5), np.int64)
+    meta[:, 0] = rng.integers(0, 35, K)
+    meta[:, 1] = rng.integers(0, 4, K) if s < 32 else 0
+    meta[:, 2], meta[:, 3] = ys, xs
+    meta[:, 4] = ((rng.random(K) < 0.6) * 2 | (rng.random(K) < 0.5) * 4 | 8)
+    aw = np.zeros((K, 5), np.int64)
+    j = np.arange(nb)
+    for k in range(K):
+        by = np.where(j < n2, ys[k] + n2 - 1 - j, ys[k] - 1)
+        bx = np.where(j <= n2, xs[k] - 1, xs[k] + j - n2 - 1)
+        av = (rng.random(nb) < 0.8) | (rng.random() < 0.4)
+        av &= (by >= 0) & (by < H) & (bx >= 0) & (bx < W)
+        av &= ~occ[by.clip(0, H - 1), bx.clip(0, W - 1)]
+        if rng.random() < 0.1 or not av.any():
+            av[:] = False
+            meta[k, 4] |= 1                       # unavailable border
+        aw[k] = np.packbits(np.pad(av, (0, 160 - nb)),
+                            bitorder="little").view(np.int32)
+    meta[n_valid:] = 0
+    aw[n_valid:] = 0
+    resid = rng.integers(-40 * sc, 41 * sc, (K, s, s))
+    return plane, meta, aw, resid
+
+
+def _k(s):
+    return min(jfd.WAVE_CAP[s.bit_length() - 1], 16)
+
+
+def _padded_np(plane):
+    hp, wp = iw.scan_pad_sizes(*plane.shape)
+    assert (hp, wp) == jiwp.scan_pad_sizes(*plane.shape)
+    return np.pad(plane, ((iw.PAD_T, hp - H - iw.PAD_T),
+                          (iw.PAD_L, wp - W - iw.PAD_L)))
+
+
+def _origins(meta):
+    return meta[:, 2] + iw.PAD_T, meta[:, 3] + iw.PAD_L
+
+
+CASES = [(s, partial) for s in SIZES for partial in (False, True)]
+IDS = [f"s{s}-{'partial' if p else 'all'}" for s, p in CASES]
+
+
+def test_pad_unpad_match_jax():
+    plane = np.arange(H * W).reshape(H, W) % 251
+    hp, wp = iw.scan_pad_sizes(H, W)
+    got = iw.pad_plane_for_scan(t32(plane), hp, wp)
+    want = jiwp.pad_plane_for_scan(jnp.asarray(plane, jnp.int32), hp=hp, wp=wp)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(iw.unpad_plane(got, H, W).numpy(), plane)
+
+
+@pytest.mark.parametrize("s,partial", CASES, ids=IDS)
+def test_border_gather_matches_jax(s, partial):
+    """Rows k < nvalid only: past nvalid the TPU kernel leaves clamped
+    duplicates and the port zeros, and nothing reads either."""
+    plane, meta, _, _ = make_step(s, _k(s), partial=partial)
+    padded = _padded_np(plane)
+    y0p, x0p = _origins(meta)
+    nvalid = int(((meta[:, 4] & 8) != 0).sum())
+    want = jiwp.border_gather(jnp.asarray(padded, jnp.int32),
+                              jnp.asarray(y0p, jnp.int32),
+                              jnp.asarray(x0p, jnp.int32), jnp.int32(nvalid),
+                              s=s, interpret=True)
+    got = iw.border_gather_plain(t32(padded), t32(y0p), t32(x0p), nvalid, s=s)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g.numpy()[:nvalid],
+                                      np.asarray(w_)[:nvalid])
+        assert not g.numpy()[nvalid:].any()
+
+
+@pytest.mark.parametrize("s,partial", CASES, ids=IDS)
+def test_window_scatter_matches_jax(s, partial):
+    plane, meta, _, resid = make_step(s, _k(s), partial=partial)
+    padded = _padded_np(plane)
+    y0p, x0p = _origins(meta)
+    valid = (meta[:, 4] & 8) != 0
+    blocks = resid + 500
+    want = jiwp.window_scatter(jnp.asarray(padded, jnp.int32),
+                               jnp.asarray(blocks, jnp.int32),
+                               jnp.asarray(y0p, jnp.int32),
+                               jnp.asarray(x0p, jnp.int32),
+                               jnp.asarray(valid), s=s, interpret=True)
+    dst = t32(padded)
+    got = iw.window_scatter_plain(dst, t32(blocks), t32(y0p), t32(x0p),
+                                  t32(valid), s=s)
+    assert got.data_ptr() == dst.data_ptr()          # in place
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not np.array_equal(got.numpy(), padded)
+
+
+def _step_args(s, meta, aw, resid, device="cpu"):
+    """The records as one bin's scan arrays: 2 steps, the data in step 1,
+    residual rows reversed and some blocks without a residual."""
+    K = meta.shape[0]
+    meta_all = np.zeros((2, K, 5), np.int64)
+    meta_all[1] = meta
+    aw_all = np.zeros((2, K, 5), np.int64)
+    aw_all[1] = aw
+    rrow_all = np.full((2, K), -1, np.int64)
+    rrow_all[1] = K - 1 - np.arange(K)
+    rrow_all[1, ::5] = -1
+    res = resid[::-1].copy()
+    return [t32(a, device) for a in (meta_all, rrow_all, aw_all, res)]
+
+
+@pytest.mark.parametrize("bit_depth", [8, 10])
+@pytest.mark.parametrize("s", SIZES)
+def test_intra_step_matches_jax_wave_body(s, bit_depth):
+    """The port's intra step on the padded plane against the JAX program's
+    step on it (_wave_body with the Pallas gather and scatter)."""
+    plane, meta, aw, resid = make_step(s, _k(s), bit_depth, seed=1,
+                                       partial=True)
+    padded = _padded_np(plane)
+    meta_all, rrow_all, aw_all, res = _step_args(s, meta, aw, resid)
+    rr = rrow_all[1].numpy()
+    jres = np.where((rr >= 0)[:, None, None], res.numpy()[np.clip(rr, 0, None)],
+                    0)
+    want = jfd._wave_body(jnp.asarray(padded, jnp.int32),
+                          jnp.asarray(meta, jnp.int32),
+                          jnp.asarray(aw, jnp.int32),
+                          jnp.asarray(jres, jnp.int32),
+                          *(jnp.asarray(t) for t in jtables(s)), s=s,
+                          bit_depth=bit_depth, pallas=True, interpret=True)
+    got = intra_cuda.intra_step_plain(
+        t32(padded), meta_all, rrow_all, aw_all, 1, res,
+        *(t32(t) for t in build_mode_tables(s)), s=s, bit_depth=bit_depth)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not np.array_equal(got.numpy(), padded)
+
+
+def _scan_bins(monkeypatch, stream):
+    """Decode a test GOP on the CPU, recording what each picture's intra
+    scan gets: [(plane shapes, {c: {lg: bin}}, nsteps)], bins as numpy."""
+    _, progs = programs(gop_bytes(stream))
+    seen = []
+    scan = tfd._intra_scan_all
+
+    def record(planes, bins_by_plane, bin_res, st, nsteps):
+        seen.append(([tuple(p.shape) for p in planes],
+                     {c: {lg: {"meta": v["meta"].numpy().copy(),
+                               "aw": v["aw"].numpy().copy(),
+                               "depth": v["depth"]}
+                          for lg, v in b.items()}
+                      for c, b in bins_by_plane.items()}, nsteps))
+        return scan(planes, bins_by_plane, bin_res, st, nsteps)
+
+    monkeypatch.setattr(tfd, "_intra_scan_all", record)
+    fd = FusedDecoder(device="cpu")
+    fd.plan_stream(progs)
+    for prog in progs:
+        fd.decode(prog)
+    return seen
+
+
+@pytest.mark.parametrize("stream", ["all-intra", "p-sao", "10bit", "tiles"])
+def test_schedule_borders_avoid_own_step(native_build, monkeypatch, stream):
+    """The invariant of the fused step kernel (csrc/intra.cu): within one
+    (plane, size, step) launch no block has an available border sample
+    inside a valid block of that launch, nor outside the picture, so the
+    border reads never meet the launch's own stores."""
+    checked = shared = 0
+    for shapes, bins, nsteps in _scan_bins(monkeypatch, stream):
+        for c, by_lg in bins.items():
+            if c >= len(shapes):
+                continue
+            h, w = shapes[c]
+            for lg, v in by_lg.items():
+                s = 1 << lg
+                nb, n2 = 4 * s + 1, 2 * s
+                j = np.arange(nb)
+                for i in range(min(v["depth"], int(np.max(nsteps)))):
+                    meta, aw = v["meta"][i], v["aw"][i]
+                    valid = (meta[:, 4] & 8) != 0
+                    if not valid.any():
+                        continue
+                    ys, xs = meta[valid, 2], meta[valid, 3]
+                    occ = np.zeros((h, w), bool)
+                    for y, x in zip(ys, xs):
+                        occ[y:y + s, x:x + s] = True
+                    av = np.unpackbits(
+                        np.ascontiguousarray(aw[valid]).astype(
+                            np.int32).view(np.uint8), axis=1,
+                        bitorder="little")[:, :nb].astype(bool)
+                    by = np.where(j < n2, ys[:, None] + n2 - 1 - j,
+                                  ys[:, None] - 1)
+                    bx = np.where(j <= n2, xs[:, None] - 1,
+                                  xs[:, None] + j - n2 - 1)
+                    inside = (by >= 0) & (by < h) & (bx >= 0) & (bx < w)
+                    assert not (av & ~inside).any(), (c, lg, i)
+                    hit = occ[by.clip(0, h - 1), bx.clip(0, w - 1)]
+                    assert not (av & inside & hit).any(), (c, lg, i)
+                    checked += int(av.sum())
+                    shared += int(valid.sum() > 1)
+    assert checked and shared      # available samples, steps of >1 block
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels against their plain versions (skip without a card)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", SIZES)
+def test_border_gather_kernel(cuda, s):
+    plane, meta, _, _ = make_step(s, jfd.WAVE_CAP[s.bit_length() - 1],
+                                  partial=True)
+    padded = t32(_padded_np(plane), cuda)
+    y0p, x0p = (t32(a, cuda) for a in _origins(meta))
+    nvalid = int(((meta[:, 4] & 8) != 0).sum())
+    got = iw.border_gather(padded, y0p, x0p, nvalid, s=s)
+    want = iw.border_gather_plain(padded, y0p, x0p, nvalid, s=s)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", SIZES)
+def test_window_scatter_kernel(cuda, s):
+    plane, meta, _, resid = make_step(s, jfd.WAVE_CAP[s.bit_length() - 1],
+                                      partial=True)
+    padded = t32(_padded_np(plane), cuda)
+    y0p, x0p = (t32(a, cuda) for a in _origins(meta))
+    valid = t32((meta[:, 4] & 8) != 0, cuda)
+    blocks = t32(resid + 500, cuda)
+    got = iw.window_scatter(padded.clone(), blocks, y0p, x0p, valid, s=s)
+    want = iw.window_scatter_plain(padded.clone(), blocks, y0p, x0p, valid,
+                                   s=s)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bit_depth", [8, 10])
+@pytest.mark.parametrize("s", SIZES)
+def test_intra_step_kernel(cuda, s, bit_depth):
+    plane, meta, aw, resid = make_step(s, jfd.WAVE_CAP[s.bit_length() - 1],
+                                       bit_depth, seed=2, partial=True)
+    # invalid slots first: the kernel must not assume that valid ones lead
+    meta, aw, resid = meta[::-1].copy(), aw[::-1].copy(), resid[::-1].copy()
+    padded = t32(_padded_np(plane), cuda)
+    args = _step_args(s, meta, aw, resid, cuda)
+    tabs = [t32(t, cuda) for t in build_mode_tables(s)]
+    got = intra_cuda.intra_step(padded.clone(), *args[:3], 1, args[3], *tabs,
+                                s=s, bit_depth=bit_depth)
+    want = intra_cuda.intra_step_plain(padded.clone(), *args[:3], 1, args[3],
+                                       *tabs, s=s, bit_depth=bit_depth)
+    assert torch.equal(got, want)

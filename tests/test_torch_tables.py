@@ -1,5 +1,6 @@
 """Every constant the PyTorch port copied equals the JAX package's array,
-and importing the port never imports JAX."""
+and importing the port never imports JAX or the JAX package."""
+import ast
 import os
 import subprocess
 import sys
@@ -56,17 +57,45 @@ def test_feed_constants():
     assert feed.AVAIL_WORDS == jfd.AVAIL_WORDS
 
 
+def _imported_by_chip_smoke():
+    """Every module chip_smoke.py imports, at any depth of its code."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.add(node.module)
+            mods.update(f"{node.module}.{a.name}" for a in node.names)
+    return sorted(mods)
+
+
 def test_port_imports_no_jax():
+    """Importing every module of the port, and everything chip_smoke.py
+    imports, loads neither JAX nor the JAX package libde265_tpu."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                        if p])
-    code = ("import sys, libde265_tpu_torch, libde265_tpu_torch.ops.coef_cuda,"
-            " libde265_tpu_torch.ops.deblock_cuda,"
-            " libde265_tpu_torch.ops.sao_cuda;"
-            " bad = sorted(m for m in sys.modules"
-            " if m == 'jax' or m.startswith('jax.'));"
-            " assert not bad, bad")
+    smoke = _imported_by_chip_smoke()
+    assert "libde265_tpu_torch.ops.intra_cuda" in smoke
+    code = f"""
+import importlib, pkgutil, sys
+import libde265_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+assert "libde265_tpu_torch.ops.intra_window" in names, names
+for name in names:
+    importlib.import_module(name)
+for name in {smoke!r}:
+    try:
+        importlib.import_module(name)
+    except ModuleNotFoundError:
+        pass   # "from pkg import name" where name is not a module
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "libde265_tpu") or
+             m.startswith(("jax.", "jaxlib", "libde265_tpu.")))
+assert not bad, bad
+"""
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
