@@ -52,32 +52,44 @@ sys.path.insert(0, str(REPO))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 INT_OPS_PER_S = 67e12       # H100 SXM peak outside the tensor cores
 
+B1, B2, B3 = "B1 expand_blocks", "B2 paint_pu_idx", "B3 mc_stripes"
+B4, B5 = "B4 densify_bin", "B5 residual_stripes"
 B6, B7 = "B6 border_gather", "B7 window_scatter"
+B8, B9 = "B8 luma_pass (V+H)", "B9 chroma_pass_stacked (V+H)"
+B10 = "B10 sao_plane_fused"
 STEP = "B6+B7 intra_step (fused)"
 
 # family -> (source, TPU kernel it replaces, ops module, launch counter,
 #            integer operations per output element, counted from the source)
 KERNELS = {
-    "B4 densify_bin": ("libde265_tpu_torch/csrc/coef.cu",
-                       "libde265_tpu/ops/coef_pallas.py:165",
-                       "coef_cuda", "launches", 2),
-    "B8 luma_pass (V+H)": ("libde265_tpu_torch/csrc/deblock.cu",
-                           "libde265_tpu/ops/deblock_pallas.py:212",
-                           "deblock_cuda", "luma_launches", 30),
-    "B9 chroma_pass_stacked (V+H)": ("libde265_tpu_torch/csrc/deblock.cu",
-                                     "libde265_tpu/ops/deblock_pallas.py:263",
-                                     "deblock_cuda", "chroma_launches", 20),
-    "B10 sao_plane_fused": ("libde265_tpu_torch/csrc/sao.cu",
-                            "libde265_tpu/ops/sao_pallas.py:120",
-                            "sao_cuda", "launches", 25),
+    B1: ("libde265_tpu_torch/csrc/expand.cu",
+         "libde265_tpu/fused_decode.py:1371", "expand", "launches", 1),
+    B2: ("libde265_tpu_torch/csrc/mc.cu",
+         "libde265_tpu/ops/mc_pallas.py:454", "mc_seg", "paint_launches",
+         100),
+    B3: ("libde265_tpu_torch/csrc/mc.cu",
+         "libde265_tpu/ops/mc_pallas.py:380", "mc_seg", "mc_launches", 60),
+    B4: ("libde265_tpu_torch/csrc/coef.cu",
+         "libde265_tpu/ops/coef_pallas.py:165", "coef_cuda", "launches", 2),
+    B5: ("libde265_tpu_torch/csrc/mc.cu",
+         "libde265_tpu/ops/mc_pallas.py:619", "mc_seg", "residual_launches",
+         2),
+    B8: ("libde265_tpu_torch/csrc/deblock.cu",
+         "libde265_tpu/ops/deblock_pallas.py:212", "deblock_cuda",
+         "luma_launches", 30),
+    B9: ("libde265_tpu_torch/csrc/deblock.cu",
+         "libde265_tpu/ops/deblock_pallas.py:263", "deblock_cuda",
+         "chroma_launches", 20),
+    B10: ("libde265_tpu_torch/csrc/sao.cu",
+          "libde265_tpu/ops/sao_pallas.py:120", "sao_cuda", "launches", 25),
     STEP: ("libde265_tpu_torch/csrc/intra.cu",
            "libde265_tpu/ops/intra_window_pallas.py:133,252",
            "intra_cuda", "launches", 60),
 }
 # The separate B6 and B7 kernels: the decode runs their device functions
 # inside the fused step, one launch per step, so these two are held against
-# their plain versions in phase 4 only (no main-path launch check, not in
-# the kernels line).
+# their plain versions in phase 4 only (no main-path launch check; their
+# rows show 0 launches).
 HELD = {
     B6: ("libde265_tpu_torch/csrc/intra.cu",
          "libde265_tpu/ops/intra_window_pallas.py:133",
@@ -88,15 +100,20 @@ HELD = {
 }
 ALL = {**KERNELS, **HELD}
 NAMES = list(ALL)
+ROWS = [B1, B2, B3, B4, B5, B6, B7, B8, B9, B10, STEP]   # the kernels line
 INTRA = (STEP, B6, B7)
 
 # wrapper (module, function) -> family
-WRAPPERS = {("coef_cuda", "densify_bin"): NAMES[0],
-            ("deblock_cuda", "luma_pass"): NAMES[1],
-            ("deblock_cuda", "luma_pass_h"): NAMES[1],
-            ("deblock_cuda", "chroma_pass_stacked"): NAMES[2],
-            ("deblock_cuda", "chroma_pass_stacked_h"): NAMES[2],
-            ("sao_cuda", "sao_plane_fused"): NAMES[3],
+WRAPPERS = {("expand", "expand_blocks"): B1,
+            ("mc_seg", "paint_pu_idx"): B2,
+            ("mc_seg", "mc_stripes"): B3,
+            ("coef_cuda", "densify_bin"): B4,
+            ("mc_seg", "residual_stripes"): B5,
+            ("deblock_cuda", "luma_pass"): B8,
+            ("deblock_cuda", "luma_pass_h"): B8,
+            ("deblock_cuda", "chroma_pass_stacked"): B9,
+            ("deblock_cuda", "chroma_pass_stacked_h"): B9,
+            ("sao_cuda", "sao_plane_fused"): B10,
             ("intra_cuda", "intra_step"): STEP,
             ("intra_window", "border_gather"): B6,
             ("intra_window", "window_scatter"): B7}
@@ -131,17 +148,11 @@ def card_check():
 
 
 def build_native():
-    """libtde265.so from native/, built by native/CMakeLists.txt."""
-    lib = BUILD / "libtde265.so"
-    if lib.exists():
-        return 0.0
-    BUILD.mkdir(exist_ok=True)
+    """The native tree (native/CMakeLists.txt) under the port's build lock
+    (libde265_tpu_torch._native.build_tree); returns the seconds it took."""
+    from libde265_tpu_torch import _native
     t0 = time.perf_counter()
-    subprocess.run(["cmake", "-G", "Ninja", "-DCMAKE_BUILD_TYPE=Release",
-                    str(REPO / "native")], cwd=BUILD, check=True,
-                   capture_output=True)
-    subprocess.run(["ninja", "libtde265.so"], cwd=BUILD, check=True,
-                   capture_output=True)
+    _native.build_tree()
     return time.perf_counter() - t0
 
 
@@ -233,10 +244,14 @@ def main_path_run(what, data, progs):
 
 
 def per_picture(progs):
-    """Synced ms and launch counts of each picture (FusedDecoder())."""
+    """Synced ms, launch counts, intra flag and upload bytes of each picture
+    (FusedDecoder()), and the bytes of the DPB ring."""
     import torch
     import libde265_tpu_torch as lt
     fd = lt.FusedDecoder()
+    if not fd.use_pallas_mc:
+        raise AssertionError("FusedDecoder() on the card is not the "
+                             "production formulation")
     fd.plan_stream(progs)
     rows = []
     for p in progs:
@@ -245,13 +260,15 @@ def per_picture(progs):
         fd.decode(p)
         torch.cuda.synchronize()
         rows.append((1000 * (time.perf_counter() - t0), read_counts(),
-                     len(p.pus) == 0))
-    return rows
+                     len(p.pus) == 0, fd.last_wire_bytes))
+    ring = sum(t.numel() * t.element_size() for t in fd._stack)
+    return rows, ring
 
 
 def section_ms(progs, idx):
-    """Synced ms of one picture's host feed pack, intra scan and whole
-    decode (the pictures before it decoded first, untimed)."""
+    """Synced ms of one picture's host feed pack, feed upload (with B1),
+    motion compensation, intra scan and whole decode (the pictures before
+    it decoded first, untimed)."""
     import torch
     import libde265_tpu_torch as lt
     fdm, feed = lt.fused_decode, lt.feed
@@ -271,9 +288,13 @@ def section_ms(progs, idx):
     fd.plan_stream(progs)
     for p in progs[:idx]:
         fd.decode(p)
+    spent["upload"] = spent["mc"] = 0.0
     scan, pack = fdm._intra_scan_all, feed.FeedPacker.pack
+    upload, mc = fdm.FusedDecoder._sparse_upload, fdm._mc_section
     fdm._intra_scan_all = timed("intra scan", scan)
     feed.FeedPacker.pack = timed("pack", pack)
+    fdm.FusedDecoder._sparse_upload = timed("upload", upload)
+    fdm._mc_section = timed("mc", mc)
     try:
         t0 = time.perf_counter()
         fd.decode(progs[idx])
@@ -281,6 +302,7 @@ def section_ms(progs, idx):
         spent["picture"] = 1000 * (time.perf_counter() - t0)
     finally:
         fdm._intra_scan_all, feed.FeedPacker.pack = scan, pack
+        fdm.FusedDecoder._sparse_upload, fdm._mc_section = upload, mc
     return spent
 
 
@@ -449,7 +471,130 @@ def _intra_records(rng, s, K, H, W, bd):
     return meta, aw, resid
 
 
-def random_cases(dev):
+def _random_pus(rng, H, W, L, max_mv, n_slots):
+    """A random partition of the picture into PUs (a quadtree of 64x64
+    blocks, halves as 2-PU splits, about a fifth left as intra holes):
+    disjoint, as in a real picture.  L=2: pred_flags 1..3."""
+    from libde265_tpu_torch.decoder import PU_DTYPE
+    recs = []
+
+    def leaf(x, y, w, h):
+        if rng.random() < 0.2:
+            return
+        r = np.zeros(1, PU_DTYPE)[0]
+        r["x"], r["y"], r["w"], r["h"] = x, y, w, h
+        r["pred_flags"] = int(rng.integers(1, 4)) if L == 2 else 1
+        for l in (0, 1):
+            r[f"mv{l}x"] = int(rng.integers(-max_mv * 4, max_mv * 4))
+            r[f"mv{l}y"] = int(rng.integers(-max_mv * 4, max_mv * 4))
+            r[f"ref_dpb{l}"] = int(rng.integers(0, n_slots))
+        recs.append(r)
+
+    def split(x, y, s):
+        if x >= W or y >= H:
+            return
+        if s > 8 and (rng.random() < 0.5 or x + s > W or y + s > H):
+            for dy in (0, s // 2):
+                for dx in (0, s // 2):
+                    split(x + dx, y + dy, s // 2)
+            return
+        u = rng.random()
+        if u < 0.3:
+            leaf(x, y, s, s // 2)
+            leaf(x, y + s // 2, s, s // 2)
+        elif u < 0.6:
+            leaf(x, y, s // 2, s)
+            leaf(x + s // 2, y, s // 2, s)
+        else:
+            leaf(x, y, s, s)
+
+    for y in range(0, H, 64):
+        for x in range(0, W, 64):
+            split(x, y, 64)
+    return np.array(recs, PU_DTYPE)
+
+
+def _segment_cases(rng, t, dev, H, W):
+    """B3 and B2 inputs at H x W: a random PU partition, rings of 17 slots
+    of random samples (luma and chroma, 8 and 10 bit), lists 0 and 1;
+    each band's index table carries two more words than its widest band
+    (padding segments, as the feed's watermark leaves them)."""
+    import torch
+    from libde265_tpu_torch.fused_decode import RING_SLOTS
+    from libde265_tpu_torch.ops import mc_seg
+    pus = _random_pus(rng, H, W, 2, 64, RING_SLOTS)
+    puw = t(mc_seg.pus_to_wire(pus))
+    n_bands = (H + 3) // 4
+    raw = [mc_seg.plan_segment_indices(pus, l, H) for l in (0, 1)]
+    kp = max(r[1].shape[1] for r in raw) + 2
+    plans = [(c, np.pad(sx, ((0, 0), (0, kp - sx.shape[1]))))
+             for c, sx, _ in raw]
+    g = torch.Generator(device=dev).manual_seed(7)
+    mc, paint = [], []
+    for chroma in (False, True):
+        Hd, Wd = (H // 2, W // 2) if chroma else (H, W)
+        hp, wp = mc_seg.pad_sizes(Hd, Wd)
+        for bd in (8, 10):
+            ring = torch.randint(0, 1 << bd, (RING_SLOTS * hp, wp),
+                                 generator=g, device=dev, dtype=torch.int32)
+            for l, (counts, sidx) in enumerate(plans):
+                mc.append(((ring, t(counts), t(sidx), puw), dict(
+                    list_idx=l, OR=2 if chroma else 4, T=4 if chroma else 8,
+                    Hpad=hp, Wout=max(256, (Wd + 127) & ~127),
+                    n_bands=n_bands, KMAX=2 * sidx.shape[1], bd=bd,
+                    chroma=chroma, Hdim=Hd, Wdim=Wd, sub_x=2, sub_y=2)))
+    for L in (1, 2):
+        sidx2 = np.stack([plans[l][1] for l in range(L)], axis=1)
+        paint.append(((t(np.stack([plans[l][0] for l in range(L)])),
+                       t(sidx2), puw), dict(n_bands=n_bands, W4=W // 4, L=L)))
+    return mc, paint
+
+
+def _residual_cases(rng, t, H, W):
+    """B5 inputs for every size bin and band height: about a third of the
+    s-grid of a 1080p luma (OR 4) or 4:2:0 chroma (OR 2) plane covered by
+    TUs; two padding words per band beyond the widest band."""
+    from libde265_tpu_torch.ops import mc_seg
+    out = []
+    for OR, (Hc, Wc) in ((4, (H, W)), (2, (H // 2, W // 2))):
+        for lg in (2, 3, 4, 5):
+            s = 1 << lg
+            gy, gx = Hc // s, Wc // s
+            cells = np.flatnonzero(rng.random(gy * gx) < 0.35)
+            rng.shuffle(cells)
+            n = len(cells)
+            sc = np.stack([np.arange(n), (cells % gx) * s, (cells // gx) * s],
+                          axis=1).astype(np.int32)
+            band, srow, x0 = mc_seg.plan_residual_segments(sc, s, OR)
+            cnt, sw, _ = mc_seg.pack_band_segments(band, srow, x0,
+                                                   (H + 3) // 4)
+            sw = np.pad(sw, ((0, 0), (0, 2)), constant_values=5 << 20)
+            res = rng.integers(-512, 512, (n + 7, s, s))
+            out.append(((t(res, np.int32), t(cnt), t(sw)), dict(
+                OR=OR, S=s, Wout=max(256, (Wc + 127) & ~127),
+                n_bands=(H + 3) // 4)))
+    return out
+
+
+def _expand_cases(rng, t):
+    """B1 inputs of a 1080p-sized feed: about 40% of its 1024-word blocks
+    nonzero, the compact rows rounded up to 256 with zero rows."""
+    out = []
+    for total in (1 << 21, 1_500_001):
+        B = 1024
+        nb = (total + B - 1) // B
+        keep = np.flatnonzero(rng.random(nb) < 0.4)
+        M = -(-len(keep) // 256) * 256
+        blocks = np.zeros((M, B), np.int32)
+        blocks[:len(keep)] = rng.integers(-(1 << 31), 1 << 31,
+                                          (len(keep), B))
+        inv = np.full(nb, -1, np.int32)
+        inv[keep] = np.arange(len(keep))
+        out.append(((t(blocks), t(inv)), dict(total=total, B=B)))
+    return out
+
+
+def random_cases(dev, H=1088, W=1920):
     """Seeded random inputs at the 1080p main-path shapes:
     {wrapper name: [(args, kwargs), ...]}."""
     import torch
@@ -464,8 +609,12 @@ def random_cases(dev):
             a = a.astype(dtype)
         return torch.from_numpy(a).to(dev)
 
-    H, W, bd = 1088, 1920, 8
+    bd = 8
     cases = {name: [] for name in FAMILY}
+    cases["mc_stripes"], cases["paint_pu_idx"] = _segment_cases(rng, t, dev,
+                                                                H, W)
+    cases["residual_stripes"] = _residual_cases(rng, t, H, W)
+    cases["expand_blocks"] = _expand_cases(rng, t)
     for S, N in ((4, 4096), (8, 2048), (16, 512), (32, 128)):
         cv, coff = _csr_bin(rng, N, S)
         cases["densify_bin"].append(((t(cv), t(coff)), {"N": N, "S": S}))
@@ -546,11 +695,15 @@ def random_cases(dev):
 def plain_of(name):
     """The plain PyTorch version of a wrapper (run on the same device)."""
     import torch
-    from libde265_tpu_torch.ops import coef_cuda, intra_cuda
+    from libde265_tpu_torch.ops import coef_cuda, expand, intra_cuda, mc_seg
     from libde265_tpu_torch.ops import intra_window as iw
     from libde265_tpu_torch.ops.deblock import _chroma_pass, _luma_pass
     from libde265_tpu_torch.ops.sao import sao_plane
 
+    if name == "expand_blocks":
+        return expand.expand_blocks_plain
+    if name in ("mc_stripes", "paint_pu_idx", "residual_stripes"):
+        return getattr(mc_seg, f"{name}_plain")
     if name == "densify_bin":
         return lambda cv, coff, N, S: coef_cuda.densify_bin_plain(cv, coff,
                                                                   N, S)
@@ -610,6 +763,34 @@ def _tensors(x):
 
 def _nbytes(x):
     return sum(t.numel() * t.element_size() for t in _tensors(x))
+
+
+def _work(name, args, kw, out):
+    """(bytes the function must move, output elements its operations are
+    counted on) for one call: each input read once and each output written
+    once.  B3 reads its segments' windows, not the whole ring, and its
+    operations run on the samples the segments cover; B5 reads the
+    residual rows its segments place."""
+    nbytes = _nbytes(args) + _nbytes(kw) + _nbytes(out)
+    nout = sum(t.numel() for t in _tensors(out))
+    if name == "mc_stripes":
+        from libde265_tpu_torch.ops import mc_seg
+        refs, nseg, sidx, pu = args
+        band, idx = mc_seg._segments(nseg, sidx, kw["KMAX"])
+        geo = {k: kw[k] for k in ("OR", "T", "Hpad", "chroma", "Hdim",
+                                  "Wdim", "sub_x", "sub_y")}
+        ws = mc_seg.seg_params(pu, idx, band.int(), kw["list_idx"],
+                               **geo)[5].long()
+        OR, T = kw["OR"], kw["T"]
+        nbytes += 4 * int(((OR + T - 1) * (ws + T - 1)).sum()) - \
+            _nbytes(refs)
+        nout = int((OR * ws).sum())
+    elif name == "residual_stripes":
+        res, nseg, sw = args
+        live = int(nseg.clamp(max=sw.shape[1]).sum())
+        nbytes += 4 * live * kw["OR"] * kw["S"] - _nbytes(res)
+        nout = live * kw["OR"] * kw["S"]
+    return nbytes, nout
 
 
 def _call(fn, name, args, kw):
@@ -687,10 +868,11 @@ def time_calls(timed):
             out = _call(k, name, args, kw)
             row = ms.setdefault(fam, [0.0, 0.0, 0, 0, 0, 0.0])
             row[5] = _add(row[5], t_dev)
+            nbytes, nout = _work(name, args, kw, out)
             row[0] += min(t_k1, t_k2)
             row[1] += min(t_p1, t_p2)
-            row[2] += _nbytes(args) + _nbytes(kw) + _nbytes(out)
-            row[3] += sum(t.numel() for t in _tensors(out))
+            row[2] += nbytes
+            row[3] += nout
             row[4] += 1
     return ms
 
@@ -822,7 +1004,8 @@ def main():
     log(f"build: native library {t_native:.1f} s, CUDA kernels "
         f"{t_kern:.1f} s (parallel nvcc + link {_build.build_seconds} s)")
     for line in _build.build_log.splitlines():
-        if "intra" in line or "registers" in line:
+        if any(k in line for k in ("intra", "mc", "paint", "residual",
+                                   "expand", "registers")):
             log(f"  ptxas: {line.strip()}")
 
     import libde265_tpu_torch as lt
@@ -861,9 +1044,9 @@ def main():
             raise AssertionError(f"{n}: no launch on the main path")
     log(f"launches in the main-path runs: {json.dumps(counts)}")
 
-    # per-picture synced times and launches (I/P split)
+    # per-picture synced times, launches and upload bytes (I/P split)
     for what, pp in (("P-GOP", progs), ("all-intra", iprogs)):
-        rows = per_picture(pp)
+        rows, ring = per_picture(pp)
         for kind, want in (("I", True), ("P", False)):
             sel = [r for r in rows if r[2] == want]
             if not sel:
@@ -871,7 +1054,9 @@ def main():
             med = statistics.median(r[0] for r in sel)
             log(f"{what}: {kind} pictures ms (synced) "
                 f"{[round(r[0], 2) for r in sel]}, median {med:.2f}; "
-                f"launches per picture {json.dumps(sel[0][1])} on {smi}")
+                f"launches per picture {json.dumps(sel[0][1])}; feed upload "
+                f"bytes (last_wire_bytes) {[r[3] for r in sel]} on {smi}")
+        log(f"{what}: DPB ring {ring} bytes (3 planes x 17 padded slots)")
 
     for what, pp, idx in (("P-GOP I", progs, first_i),
                           ("P-GOP P", progs, first_p),
@@ -879,34 +1064,45 @@ def main():
         spent = {k: round(v, 2) for k, v in section_ms(pp, idx).items()}
         log(f"sections of {what} picture {idx} (synced ms): "
             f"{json.dumps(spent)} on {smi}")
-    wall, busy, intra = profile_picture(iprogs, 1)
-    if busy > 0:
-        log(f"profiled all-intra picture 1: wall {wall:.2f} ms, device busy "
-            f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}; intra kernels "
-            f"(device ms, launches) {json.dumps(intra)} on {smi}")
-    else:
-        log("profiled all-intra picture 1: the profiler saw no device "
-            "time; idle share not measured")
+    for what, pp, idx in (("all-intra", iprogs, 1),
+                          ("P-GOP P", progs, first_p)):
+        wall, busy, intra = profile_picture(pp, idx)
+        if busy > 0:
+            log(f"profiled {what} picture {idx}: wall {wall:.2f} ms, device "
+                f"busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}; "
+                f"intra kernels (device ms, launches) {json.dumps(intra)} "
+                f"on {smi}")
+        else:
+            log(f"profiled {what} picture {idx}: the profiler saw no device "
+                "time; idle share not measured")
 
     # ---- phase 4: kernels vs plain on the card ----
     fd = lt.FusedDecoder(device=dev)
     fd.plan_stream(progs)
     caps = capture_inputs(fd, progs[:first_p + 1])
     del fd
+    rand = random_cases(dev)
     err, ncases = compare_kernels(
-        [("random", random_cases(dev)),
+        [("random", rand),
          (f"frame {first_i} (I)", caps[first_i]),
          (f"frame {first_p} (P)", caps[first_p])])
-    ms = time_calls(caps[first_p])
+    # times on the P picture's calls; a wrapper that the P picture did not
+    # call is timed on the I picture's calls, else on its random cases
+    timed = {**{k: v for k, v in rand.items() if FAMILY[k] not in INTRA},
+             **caps[first_i], **caps[first_p]}
+    pic_of = {FAMILY[k]: ("P" if k in caps[first_p] else
+                          "I" if k in caps[first_i] else "random")
+              for k in timed}
+    ms = time_calls(timed)
     compare_intra_trace(caps[first_i]["intra_step"], err, ncases, ms)
-    del caps
-    for n in NAMES:
+    del caps, timed, rand
+    for n in ROWS:
         k_ms, p_ms, nbytes, nout, ncalls, d_ms = ms[n]
         bound_ms, _ = _bound(n, nbytes, nout)
-        pic = "I" if n in INTRA else "P"
+        pic = "I" if n in INTRA else pic_of[n]
         dev_txt = "not measured" if d_ms is None else f"{d_ms:.4f} ms"
         log(f"{n}: {ncases[n]} cases equal to the plain version (tolerance "
-            f"0, integer); {pic}-picture ({ncalls} calls) {k_ms:.4f} ms "
+            f"0, integer); {pic} ({ncalls} calls) {k_ms:.4f} ms "
             f"(CUDA events; device time {dev_txt}) vs plain {p_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({nbytes} bytes) on {smi}")
 
@@ -915,13 +1111,21 @@ def main():
                            8, 30, {"intra-period": 8, "b-slices": True,
                                    "weighted-pred": True, "num-refs": 2})
     _, bprogs = oracle_programs(bdata)
-    bouts = lt.PipelinedDecoder().decode_stream(bdata)
-    torch.cuda.synchronize()
-    assert_bit_exact(bouts, bprogs, "416x240 B/weighted")
     n_bi = sum(int((p.pus["pred_flags"] == 3).sum()) for p in bprogs
                if len(p.pus))
-    log(f"416x240 B/weighted/2-ref: {len(bprogs)} frames bit-exact "
-        f"({n_bi} bi-predicted PUs)")
+    for production in (True, False):
+        pd = lt.PipelinedDecoder()
+        pd.fd.use_pallas_mc = production
+        reset_counts()
+        bouts = pd.decode_stream(bdata)
+        torch.cuda.synchronize()
+        c = read_counts()
+        what = "production" if production else "use_pallas_mc=False"
+        assert_bit_exact(bouts, bprogs, f"416x240 B/weighted ({what})")
+        if (c[B3] > 0) != production:
+            raise AssertionError(f"416x240 ({what}): {c[B3]} B3 launches")
+        log(f"416x240 B/weighted/2-ref, {what}: {len(bprogs)} frames "
+            f"bit-exact ({n_bi} bi-predicted PUs); launches {json.dumps(c)}")
 
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "libde265_tpu") or
@@ -931,7 +1135,8 @@ def main():
                              f"{bad[:5]}")
 
     kernels = []
-    for n, (src, rep, *_) in KERNELS.items():
+    for n in ROWS:
+        src, rep = ALL[n][:2]
         bound_ms, bound_by = _bound(n, ms[n][2], ms[n][3])
         kernels.append({"name": n, "route": "cuda", "source": src,
                         "replaces": rep, "launches": counts[n],

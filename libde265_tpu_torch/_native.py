@@ -5,26 +5,60 @@ imports the JAX package; both load the same ``build/libtde265.so``.
 
 The native library provides the de265.h-compatible C API plus the tde265_*
 FrameProgram tensor-export extensions (native/src/capi.cc).
+
+The build is safe for concurrent processes: ``build_tree`` takes an
+exclusive lock on ``build/.native.lock`` and, holding it, configures the
+tree (once) and builds every target.  Several processes that start on an
+incomplete tree at once (test workers, say) queue on the lock: one builds,
+the others find the tree complete.  Without the lock, one process relinks
+``libtde265.so`` while another links a tool against it.
 """
 from __future__ import annotations
 
 import ctypes as ct
+import fcntl
 import subprocess
 from pathlib import Path
 
 _REPO = Path(__file__).resolve().parent.parent
 _BUILD = _REPO / "build"
 _LIB_PATH = _BUILD / "libtde265.so"
+LOCK_NAME = ".native.lock"
+
+_built = set()   # build directories this process has brought up to date
+
+
+def _run(cmd, cwd: Path):
+    r = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"native build: {' '.join(cmd)} failed "
+                           f"({r.returncode}):\n{r.stdout}\n{r.stderr}")
+
+
+def build_tree(build: Path = _BUILD, source: Path = _REPO / "native") -> Path:
+    """Configure `build` from the CMake tree `source` (if it has no
+    build.ninja) and build all its targets, under an exclusive lock on
+    `build`/.native.lock; once per process and build directory (a no-op
+    ninja is cheap, and a lone library file says nothing of the tools).
+    Raises with the build's output on failure."""
+    build = Path(build)
+    if build in _built:
+        return build
+    build.mkdir(parents=True, exist_ok=True)
+    with open(build / LOCK_NAME, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not (build / "build.ninja").exists():
+                _run(["cmake", "-G", "Ninja", str(source)], build)
+            _run(["ninja"], build)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    _built.add(build)
+    return build
 
 
 def _ensure_built() -> Path:
-    if _LIB_PATH.exists():
-        return _LIB_PATH
-    _BUILD.mkdir(exist_ok=True)
-    if not (_BUILD / "build.ninja").exists():
-        subprocess.run(["cmake", "-G", "Ninja", str(_REPO / "native")],
-                       cwd=_BUILD, check=True, capture_output=True)
-    subprocess.run(["ninja"], cwd=_BUILD, check=True, capture_output=True)
+    build_tree()
     return _LIB_PATH
 
 

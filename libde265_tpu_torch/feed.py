@@ -1,12 +1,17 @@
 """Host feed packer: one int32 buffer plus a layout per picture (numpy).
 
-A copy of the numpy packer of ``libde265_tpu/fused_decode.py`` (the
-``use_pallas_mc=False`` branches of ``_pack_numpy``, ``_grow`` and
-``plan_stream``, with ``_bin_tus``, ``_intra_records_native``,
-``_pack_pcm`` and ``mc_pallas.pus_to_wire``), kept here so that the port
-never imports JAX.  For the same sequence of pictures it returns the same
-``(layout, buf)`` word for word as the JAX packer, capacity watermarks
-included; ``tests/test_torch_feed.py`` holds the two against each other.
+A copy of the numpy packer of ``libde265_tpu/fused_decode.py``
+(``_pack_numpy``, ``_grow`` and ``plan_stream``, with ``_bin_tus``,
+``_intra_records_native`` and ``_pack_pcm``; the segment planning lives in
+``ops/mc_seg.py``), kept here so that the port never imports JAX.  Both of
+its formulations are here: with ``pallas_mc`` the production feed (the MC
+segment index feed ``sg{l}n``/``sg{l}i``, the residual band feed
+``rs{lg}{ch}.n``/``.sw`` in place of ``bin{lg}.sc_*``, reference POCs by
+DPB ring slot, the halfword grid ``g4`` and the ring rows ``slot_row``),
+else the ``use_pallas_mc=False`` feed.  For the same sequence of pictures
+it returns the same ``(layout, buf)`` word for word as the JAX packer,
+capacity watermarks included; ``tests/test_torch_feed.py`` holds the two
+against each other.
 
 Cross-component prediction is not packed: the port's decoder refuses such
 pictures before packing (ROADMAP A2).
@@ -16,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 
 from .decoder import TU_INTRA, TU_RDPCM, FrameProgramData
+from .ops import mc_seg
+from .ops.mc_seg import pus_to_wire  # noqa: F401  (re-exported)
 
 MAX_REFS = 8
 NOREF = -(10 ** 6)
@@ -249,38 +256,6 @@ def _pad_rows(a: np.ndarray, cap: int, fill=0) -> np.ndarray:
     return np.concatenate([a, pad])
 
 
-def pus_to_wire(pus: np.ndarray, slot_map=None):
-    """The 5-word wire PU SoA: mv0 (x|y<<16), mv1, meta (pf | slot0<<2 |
-    slot1<<8 | ridx0<<14 | ridx1<<18), slice, geo (x/4 | y/4<<11 |
-    (w/4-1)<<22 | (h/4-1)<<27)."""
-    n = len(pus)
-    pu = np.zeros((max(n, 1), 5), np.int32)
-    if not n:
-        return pu
-    p = pus
-    pu[:n, 0] = (p["mv0x"].astype(np.int32) & 0xFFFF) | \
-        (p["mv0y"].astype(np.int32) << 16)
-    pu[:n, 1] = (p["mv1x"].astype(np.int32) & 0xFFFF) | \
-        (p["mv1y"].astype(np.int32) << 16)
-    meta = p["pred_flags"].astype(np.int32) & 3
-    for l in (0, 1):
-        raw = p[f"ref_dpb{l}"].astype(np.int32)
-        if slot_map is not None:
-            slot = np.array([slot_map.get(int(v), 0) for v in raw], np.int32)
-        else:
-            slot = np.maximum(raw, 0)
-        meta |= (slot & 63) << (2 + 6 * l)
-        meta |= (np.maximum(p[f"ref_idx{l}"].astype(np.int32), 0)
-                 & 15) << (14 + 4 * l)
-    pu[:n, 2] = meta
-    pu[:n, 3] = p["slice"]
-    pu[:n, 4] = (p["x"].astype(np.int32) >> 2) | \
-        ((p["y"].astype(np.int32) >> 2) << 11) | \
-        (((p["w"].astype(np.int32) >> 2) - 1) << 22) | \
-        (((p["h"].astype(np.int32) >> 2) - 1) << 27)
-    return pu
-
-
 def has_ccp(prog: FrameProgramData) -> bool:
     return bool(len(prog.tus) and (prog.tus["cross_comp_scale"] != 0).any())
 
@@ -314,6 +289,7 @@ class FeedPacker:
                 self.caps[f"sc{lg}{ch}"] = 0
         for c in range(3):
             self.caps[f"pcm{c}"] = 0
+        self.caps["segk"] = 0   # MC segments per band (production feed)
         self.intra_lgs = set()  # (plane_class, lg) seen
         self.use_l1 = False
         self.has_inter = False
@@ -334,19 +310,25 @@ class FeedPacker:
             bool((prog.pus["pred_flags"] & 2).any()) if len(prog.pus)
             else False)
 
-    def plan_stream(self, progs):
+    def plan_stream(self, progs, pallas_mc=False):
         """Pre-size every capacity from a list of pictures, so the whole
-        stream packs into one layout."""
+        stream packs into one layout (pallas_mc: the production feed's
+        segment and residual band watermarks too)."""
         for prog in progs:
             if len(prog.ref_pocs) > MAX_REFS:
                 continue
             bins, _, _ = _bin_tus(prog)
+            sub_y0 = prog.height // prog.chroma_height \
+                if prog.chroma_height else 1
             for lg, b in bins.items():
                 self.grow(f"tu{lg}", b["n"])
                 self.grow(f"co{lg}", len(b["cv"]))
                 self.grow(f"cf{lg}", len(b["cfx"]))
-                for ch in ("y", "cb", "cr"):
+                for c, ch in enumerate(("y", "cb", "cr")):
                     self.grow(f"sc{lg}{ch}", len(b[f"sc_{ch}"]))
+                    if pallas_mc and len(b[f"sc_{ch}"]):
+                        self.grow(f"rk{lg}{ch}", self._band_segments(
+                            b[f"sc_{ch}"], lg, c, sub_y0, prog.height)[2])
             self.grow("pu", len(prog.pus))
             self.grow("slices", len(prog.slice_records))
             self._note_l1(prog)
@@ -364,14 +346,31 @@ class FeedPacker:
             pcm = _pack_pcm(prog, sub_x, sub_y)
             for c in range(3):
                 self.grow(f"pcm{c}", len(pcm[c]))
+            if pallas_mc and len(prog.pus):
+                for l in (0, 1):
+                    _, _, K = mc_seg.plan_segment_indices(prog.pus, l,
+                                                          prog.height)
+                    self.grow("segk", K)
 
-    def pack(self, prog: FrameProgramData, slot_map):
+    @staticmethod
+    def _band_segments(sc, lg, c, sub_y, H):
+        """(counts, words, K) of one bin's residual band feed of plane c."""
+        OR = 4 if c == 0 else 4 // max(sub_y, 1)
+        band, srow, x0s = mc_seg.plan_residual_segments(sc, 1 << lg, OR)
+        return mc_seg.pack_band_segments(band, srow, x0s, (H + 3) // 4)
+
+    def pack(self, prog: FrameProgramData, slot_map, slot_row=None,
+             pallas_mc=False):
         """Returns (layout, buf, lgs, n_slices): layout is a tuple of
-        (name, offset, shape) into the int32 buffer buf."""
+        (name, offset, shape) into the int32 buffer buf.  With pallas_mc,
+        the production feed; slot_map then maps reference index -> DPB
+        ring slot and slot_row holds the ring row of the picture's own slot
+        per plane."""
         H, W = prog.height, prog.width
         has_chroma = prog.chroma_width > 0
         sub_x = W // prog.chroma_width if has_chroma else 1
         sub_y = H // prog.chroma_height if has_chroma else 1
+        n_bands = (H + 3) // 4
 
         # --- PU SoA [Pcap, 5] ---
         pcap = self.grow("pu", max(len(prog.pus), 1))
@@ -379,6 +378,23 @@ class FeedPacker:
         if len(prog.pus):
             pw = pus_to_wire(prog.pus, slot_map)
             pu[:pw.shape[0]] = pw
+
+        # --- MC segments (production feed): the PU index of each PU x band
+        # work unit; windows are re-derived on the device ---
+        seg_host = {}
+        if pallas_mc:
+            lists = (0, 1) if self.use_l1 or (
+                len(prog.pus) and bool((prog.pus["pred_flags"] & 2).any())) \
+                else (0,)
+            for l in lists:
+                if l == 1:
+                    self.use_l1 = True
+                counts, sidx, K = mc_seg.plan_segment_indices(prog.pus, l, H)
+                kcap = self.grow("segk", max(K, 1))
+                a = np.zeros((n_bands, (kcap + 1) // 2), np.int32)
+                a[:, :sidx.shape[1]] = sidx
+                seg_host[f"sg{l}i"] = a
+                seg_host[f"sg{l}n"] = counts.astype(np.int32)
 
         # --- TU bins ---
         bins, _, _ = _bin_tus(prog)
@@ -409,10 +425,18 @@ class FeedPacker:
                     b["cfx"] if b else z0, fcap, fill=-1)
                 host[f"bin{lg}.cfv"] = _pad_rows(b["cfv"] if b else z0,
                                                  fcap)
-            for ch in ("y", "cb", "cr"):
+            for c, ch in enumerate(("y", "cb", "cr")):
                 sc = b[f"sc_{ch}"] if b else np.zeros((0, 3), np.int32)
                 cap = self.grow(f"sc{lg}{ch}", len(sc))
-                host[f"bin{lg}.sc_{ch}"] = _pad_rows(sc, cap, fill=-1)
+                if not pallas_mc:
+                    host[f"bin{lg}.sc_{ch}"] = _pad_rows(sc, cap, fill=-1)
+                elif cap:
+                    cnt, sw, K = self._band_segments(sc, lg, c, sub_y, H)
+                    kcap = self.grow(f"rk{lg}{ch}", K)
+                    swp = np.zeros((n_bands, kcap), np.int32)
+                    swp[:, :sw.shape[1]] = sw
+                    host[f"rs{lg}{ch}.n"] = cnt
+                    host[f"rs{lg}{ch}.sw"] = swp
 
         # --- intra super-waves (flat records; scan layout built on device) ---
         irec, n_steps, nsteps_pc = _intra_records(prog)
@@ -440,8 +464,14 @@ class FeedPacker:
                 host[f"bin{lg}.coff"] = np.zeros(tcap + 1, np.int32)
                 for ch in ("y", "cb", "cr"):
                     cap = self.grow(f"sc{lg}{ch}", 0) or 0
-                    host[f"bin{lg}.sc_{ch}"] = _pad_rows(
-                        np.zeros((0, 3), np.int32), cap, fill=-1)
+                    if not pallas_mc:
+                        host[f"bin{lg}.sc_{ch}"] = _pad_rows(
+                            np.zeros((0, 3), np.int32), cap, fill=-1)
+                    elif cap:
+                        kcap = self.caps.get(f"rk{lg}{ch}", 1) or 1
+                        host[f"rs{lg}{ch}.n"] = np.zeros(n_bands, np.int32)
+                        host[f"rs{lg}{ch}.sw"] = np.zeros((n_bands, kcap),
+                                                          np.int32)
         lgs = sorted(lgs)
 
         # --- PCM ---
@@ -457,9 +487,16 @@ class FeedPacker:
         recs[:len(prog.slice_records)] = prog.slice_records
         host["slice_recs"] = recs
         host["pu"] = pu
-        host["ref_pocs"] = np.array(
-            [prog.ref_pocs[i] if i < len(prog.ref_pocs) else NOREF
-             for i in range(MAX_REFS)], np.int32)
+        if pallas_mc:
+            # PU slot fields hold DPB ring positions: POCs by ring slot
+            pocs_by_slot = np.full(2 * MAX_REFS + 1, NOREF, np.int32)
+            for i, poc in enumerate(prog.ref_pocs[:MAX_REFS]):
+                pocs_by_slot[slot_map.get(i, 2 * MAX_REFS)] = poc
+            host["ref_pocs"] = pocs_by_slot
+        else:
+            host["ref_pocs"] = np.array(
+                [prog.ref_pocs[i] if i < len(prog.ref_pocs) else NOREF
+                 for i in range(MAX_REFS)], np.int32)
         host["mc_on"] = np.array([1 if len(prog.pus) else 0], np.int32)
         # per-4x4 grids in one word: qp(8) | nzc(1) | dbf(4) | cu(4) |
         # pu_idx+1 (15, 0 = uncovered); pu_idx spills to its own field
@@ -468,7 +505,15 @@ class FeedPacker:
             ((prog.nonzero_coeff.astype(np.int32) & 1) << 8) | \
             ((prog.deblock_flags.astype(np.int32) & 0xF) << 9) | \
             ((prog.cu_info.astype(np.int32) & 0xF) << 13)
-        if self.caps["pu"] < (1 << 15) - 1:
+        if pallas_mc:
+            # halfword grid, two horizontally adjacent cells per word:
+            # qp(8) | nzc(1) | dbf(4) | cu(3); pu_idx is painted on the
+            # device from the segment index feed (kernel B2)
+            g16 = g & 0xFFFF
+            if g16.shape[1] & 1:
+                g16 = np.pad(g16, ((0, 0), (0, 1)))
+            host["g4"] = g16[:, 0::2] | (g16[:, 1::2] << 16)
+        elif self.caps["pu"] < (1 << 15) - 1:
             host["g4"] = g | ((prog.pu_idx.astype(np.int32) + 1) << 17)
         else:
             host["g4"] = g
@@ -492,9 +537,12 @@ class FeedPacker:
             host["sao_band"] = np.zeros((*sh, 3), np.int32)
             host["sao_off"] = np.zeros((*sh, 3, 4), np.int32)
 
+        if pallas_mc:
+            host["slot_row"] = np.asarray(slot_row, np.int32)
         self._note_l1(prog)
 
         # --- pack: ONE host->device upload per picture ---
+        host.update(seg_host)
         layout = []
         total = 0
         for k in sorted(host):

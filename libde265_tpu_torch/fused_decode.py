@@ -1,22 +1,32 @@
 """Whole-picture decode on one device: the PyTorch port of
-``libde265_tpu/fused_decode.py`` (its ``use_pallas_mc=False`` program,
-with the intra scan in its ``pallas_intra`` formulation).
+``libde265_tpu/fused_decode.py``, in both of its formulations.
 
 Per picture the host packs one int32 feed buffer plus a layout (``feed``),
-uploads it as one tensor, and ``_compiled_impl`` runs the picture in the
-order of the JAX program: per-cell PU gather, motion compensation,
-coefficient densify (kernel B4), dequant + IDCT, residual add, PCM, the
-intra super-wave scan on padded planes (one fused kernel per step and size
-bin, holding kernels B6 and B7), deblocking (kernels B8, B9) and SAO
-(kernel B10).
-Decoded planes stay on the device and serve as references of later
-pictures.
+uploads it, and ``_compiled_impl`` runs the picture in the order of the JAX
+program: per-cell PU gather, motion compensation, coefficient densify
+(kernel B4), dequant + IDCT, residual add, PCM, the intra super-wave scan
+on padded planes (one fused kernel per step and size bin, holding kernels
+B6 and B7), deblocking (kernels B8, B9) and SAO (kernel B10).
+
+``FusedDecoder.use_pallas_mc`` selects the formulation, as in the JAX
+package (which turns it on for TPU backends):
+
+* on (the default on the card): the production program.  The feed crosses
+  as its nonzero blocks and is rebuilt on the device (kernel B1); the
+  per-cell PU map is painted from the MC segment feed (B2); inter
+  prediction runs per PU x band segment straight from a padded DPB ring
+  of ``2*MAX_REFS+1`` slots (B3); the inter residual is placed as band
+  stripes (B5); and the program writes its decoded planes, edge-replicated,
+  into the picture's own ring slot (the fused store).  The ring is updated
+  in place.
+* off (the CPU tests' default): the per-cell gather formulation, with
+  ``[MAX_REFS, H, W]`` reference stacks built per picture.
 
 The device of the tensors selects the implementation of each kernel: on a
 CUDA tensor the wrapper launches the hand-written Hopper kernel, on a CPU
 tensor it runs the plain PyTorch version.  Host-known values of the feed
-(the MC gate, the intra step counts) are read from the numpy buffer, so the
-frame program never waits on the device.
+(the MC gate, the intra step counts, the ring rows) are read from the
+numpy buffer, so the frame program never waits on the device.
 
 JAX silently clamps out-of-range gather indices and drops out-of-range
 scatter writes (``mode="drop"``), and the feed relies on that with its
@@ -24,13 +34,17 @@ sentinel pads.  Here every such index is clamped or redirected to a
 trailing scratch element explicitly.
 
 Not in this port yet (each raises NotImplementedError): pictures with more
-than MAX_REFS references (ROADMAP A8), cross-component prediction and RDPCM
-(A2), and the padded DPB ring with the fused store (A4).
+than MAX_REFS references (ROADMAP A), cross-component prediction and RDPCM
+(ROADMAP A).
 """
 from __future__ import annotations
 
+import ctypes as ct
+
 import numpy as np
 import torch
+
+from . import _native
 
 from .decoder import (TU_TQ_BYPASS, TU_TRANSFORM_SKIP, TU_USE_DST,
                       FrameProgramData)
@@ -40,7 +54,7 @@ from .feed import AVAIL_WORDS, MAX_REFS, NOREF, WAVE_CAP, FeedPacker
 from .frame_helpers import (_cells_to_plane, _chroma_qp_map,
                             _edge_params_jnp, _mc_plane, _merge,
                             _pad_edge0_cols)
-from .ops import coef_cuda, deblock_cuda, intra_cuda, sao_cuda
+from .ops import coef_cuda, deblock_cuda, expand, intra_cuda, mc_seg, sao_cuda
 from .ops import deblock as dbk
 from .ops import intra_window as iw
 from .ops import transform as tx
@@ -49,6 +63,9 @@ from .ops.mc import EPEL_FILTERS, QPEL_FILTERS
 from .ops.sao import EO_D
 
 _PC_OF = {v: k for k, v in fdp._PLANE_CLASS.items()}
+RING_SLOTS = 2 * MAX_REFS + 1   # slot 2*MAX_REFS stays gray
+SPARSE_BLOCK = 1024             # words per block of the sparse upload
+SPARSE_ROUND = 256              # its block count is rounded up to this
 
 
 def _i32(a, device):
@@ -104,10 +121,14 @@ def _split(buf, layout):
     return feed
 
 
-def _expand_feed(feed):
+def _expand_feed(feed, st=None):
     """Expand the wire-compact feed fields: TU meta halfwords, the intra
     records, the PU SoA and the per-4x4 grid word.  The coefficient stream
-    stays CSR (cv/coff) for densify_bin."""
+    stays CSR (cv/coff) for densify_bin.  With st["g4_half"] (the
+    production feed) the grid is halfwords and the per-cell PU index is
+    painted from the segment feed (kernel B2), or is -1 everywhere when the
+    stream has no inter picture; the wire PU SoA stays as "pu_wire" for the
+    segment kernels."""
     for k, d in feed.items():
         if k.startswith("bin") and "tm" in d:
             # TU meta halfwords: qp7 (signed) | flags6<<7 | mid3<<13
@@ -121,10 +142,37 @@ def _expand_feed(feed):
         feed["irec"] = _unpack_irec(feed.pop("irecp"))
     pu = feed["pu"]
     mv0, mv1, meta, sl = pu[:, 0], pu[:, 1], pu[:, 2], pu[:, 3]
+    feed["pu_wire"] = pu
     feed["pu"] = torch.stack(
         [(mv0 << 16) >> 16, mv0 >> 16, (mv1 << 16) >> 16, mv1 >> 16,
          meta & 3, (meta >> 2) & 63, (meta >> 8) & 63,
          (meta >> 14) & 15, (meta >> 18) & 15, sl], dim=1)
+    if st is not None and st.get("g4_half"):
+        # halfword grid (two cells per word): qp8 | nzc1<<8 | dbf4<<9 |
+        # cu3<<13
+        g4p = feed.pop("g4")
+        pb_h = g4p.shape[0]
+        W4 = (st["W"] + 3) // 4
+        g4 = torch.stack([g4p & 0xFFFF, (g4p >> 16) & 0xFFFF],
+                         dim=2).reshape(pb_h, -1)[:, :W4]
+        feed["qp4"] = g4 & 0xFF
+        feed["nzc4"] = (g4 >> 8) & 1
+        feed["dbf4"] = (g4 >> 9) & 0xF
+        feed["cu4"] = (g4 >> 13) & 0x7
+        if "sg0i" in feed:
+            L = 2 if "sg1i" in feed else 1
+            kp = max(feed[f"sg{l}i"].shape[1] for l in range(L))
+            sidx2 = torch.zeros((pb_h, L, kp), dtype=torch.int32,
+                                device=pu.device)
+            for l in range(L):
+                sidx2[:, l, :feed[f"sg{l}i"].shape[1]] = feed[f"sg{l}i"]
+            feed["pu_idx"] = mc_seg.paint_pu_idx(
+                torch.stack([feed[f"sg{l}n"] for l in range(L)]), sidx2, pu,
+                n_bands=pb_h, W4=W4, L=L)
+        else:   # intra-only stream: no inter coverage
+            feed["pu_idx"] = torch.full((pb_h, W4), -1, dtype=torch.int32,
+                                        device=pu.device)
+        return
     g4 = feed.pop("g4")
     feed["qp4"] = g4 & 0xFF
     feed["nzc4"] = (g4 >> 8) & 1
@@ -139,22 +187,26 @@ def _host_values(hbuf, layout):
     hfeed = _split(hbuf, layout)
     irec = _unpack_irec(hfeed["irecp"])
     return {"mc_on": bool(hfeed["mc_on"][0]),
-            "nsteps": np.asarray(hfeed["nsteps"]), "irec": irec}
+            "nsteps": np.asarray(hfeed["nsteps"]), "irec": irec,
+            "slot_row": [int(v) for v in hfeed.get("slot_row", ())]}
 
 
 def _compiled_impl(refs_y, refs_cb, refs_cr, buf, sf_tables, st, layout,
                    host_buf=None):
     """The whole-picture program on the packed feed.
 
-    refs_*: [MAX_REFS, h, w] int32 reference stacks; buf: the uploaded int32
-    feed; st: the static configuration (a dict, or the JAX package's tuple
-    of pairs); layout: (name, offset, shape) triples into buf; host_buf: the
-    numpy buffer buf was uploaded from (read back from buf if None)."""
+    refs_*: [MAX_REFS, h, w] int32 reference stacks, or with
+    st["fuse_store"] the DPB ring [RING_SLOTS * Hpad, Wpad] of each plane;
+    buf: the uploaded int32 feed; st: the static configuration (a dict, or
+    the JAX package's tuple of pairs); layout: (name, offset, shape)
+    triples into buf; host_buf: the numpy buffer buf was uploaded from
+    (read back from buf if None).  Returns the decoded planes, followed
+    with fuse_store by the three rings (updated in place)."""
     std = dict(st)
     if host_buf is None:
         host_buf = buf.cpu().numpy()
     feed = _split(buf, layout)
-    _expand_feed(feed)
+    _expand_feed(feed, std)
     return _frame_fn(refs_y, refs_cb, refs_cr, feed, sf_tables, std,
                      _host_values(host_buf, layout))
 
@@ -164,9 +216,6 @@ def _compiled_impl(refs_y, refs_cb, refs_cr, buf, sf_tables, st, layout,
 # ---------------------------------------------------------------------------
 
 def _check_config(st):
-    if st.get("fuse_store"):
-        raise NotImplementedError(
-            "padded DPB ring / fused store (ROADMAP B3, with the Pallas feed)")
     if st.get("has_ccp") or st.get("has_rdpcm"):
         raise NotImplementedError(
             "cross-component prediction and RDPCM (ROADMAP A2)")
@@ -217,7 +266,7 @@ def _frame_fn(refs_y, refs_cb, refs_cr, feed, sf_tables, st, host):
     Hc, Wc = H // sub_y, W // sub_x
     if st["has_inter"] and host["mc_on"]:
         y, cbp, crp = _mc_section(refs_y, refs_cb, refs_cr, cell, wg, st,
-                                  pb_h, pb_w)
+                                  pb_h, pb_w, feed)
         cov = covered.reshape(pb_h, pb_w)
         m = cov.repeat_interleave(4, 0).repeat_interleave(4, 1)[:H, :W]
         planes = [w(m, y, 0)]
@@ -261,8 +310,10 @@ def _frame_fn(refs_y, refs_cb, refs_cr, feed, sf_tables, st, host):
                                     use_dst, lg, bd)
         bin_res[lg] = w(bypass[:, None, None], levels, res)
 
-    # ---- inter residual scatter-add + clip ----
-    for lg in st["lgs"]:
+    # ---- inter residual add + clip ----
+    if st.get("pallas_mc"):
+        _add_residual_stripes(planes, bin_res, feed, st)
+    for lg in () if st.get("pallas_mc") else st["lgs"]:
         s = 1 << lg
         bf = feed[f"bin{lg}"]
         ar = torch.arange(s, device=dev)
@@ -309,12 +360,82 @@ def _frame_fn(refs_y, refs_cb, refs_cr, feed, sf_tables, st, host):
         planes = _deblock_section(planes, feed, recs, cell, skip4, st)
     if st["run_sao"]:
         planes = _sao_section(planes, feed, recs, skip4, st)
+    if st.get("fuse_store"):
+        # the fused store: each decoded plane, edge-replicated, into its
+        # ring slot (in place; the MC reads of this picture are done)
+        rings = [refs_y, refs_cb, refs_cr]
+        for c, plane in enumerate(planes):
+            hp = rings[c].shape[0] // RING_SLOTS
+            row = host["slot_row"][c]
+            rings[c][row:row + hp] = pad_replicate(plane, hp,
+                                                   rings[c].shape[1])
+        return tuple(planes) + tuple(rings)
     return tuple(planes)
 
 
-def _mc_section(refs_y, refs_cb, refs_cr, cell, wg, st, pb_h, pb_w):
-    """Per-4x4-cell motion compensation from [R, h, w] reference stacks
-    (the JAX program's non-Pallas branch) and the weighted/bi merge."""
+def pad_replicate(plane, hp: int, wp: int):
+    """The plane at offset (PADT, PADL) of an [hp, wp] slot, its edges
+    replicated outward (a clamped index gather: replicate padding is not
+    implemented for int32 on every device)."""
+    h, w = plane.shape
+    dev = plane.device
+    rows = (torch.arange(hp, device=dev) - mc_seg.PADT).clamp(0, h - 1)
+    cols = (torch.arange(wp, device=dev) - mc_seg.PADL).clamp(0, w - 1)
+    return plane[rows[:, None], cols[None, :]]
+
+
+def _add_residual_stripes(planes, bin_res, feed, st):
+    """The production residual add: per plane, the band stripes of every
+    size bin (kernel B5), summed and added to the prediction."""
+    H = st["H"]
+    n_bands = (H + 3) // 4
+    for c, ch in enumerate(("y", "cb", "cr")[:len(planes)]):
+        Hc = H if c == 0 else st["ch"]
+        Wc = st["W"] if c == 0 else st["cw"]
+        OR = 4 if c == 0 else 4 // st["sub_y"]
+        wout = max(256, (Wc + 127) & ~127)
+        acc = None
+        for lg in st["lgs"]:
+            key = f"rs{lg}{ch}"
+            if f"{key}.n" not in feed:
+                continue
+            stripes = mc_seg.residual_stripes(
+                bin_res[lg], feed[f"{key}.n"], feed[f"{key}.sw"], OR=OR,
+                S=1 << lg, Wout=wout, n_bands=n_bands)
+            acc = stripes if acc is None else acc + stripes
+        if acc is not None:
+            planes[c] = planes[c] + acc.reshape(n_bands * OR, wout)[:Hc, :Wc]
+
+
+def _mc_stripe_blocks(refs, feed, st, pb_h, pb_w, N, chroma):
+    """The segment MC of one plane class: per list, kernel B3's stripes
+    from the ring, cut to the cell blocks [N, rows, cols] of _merge."""
+    H, W = st["H"], st["W"]
+    sub_x, sub_y = max(st["sub_x"], 1), max(st["sub_y"], 1)
+    if chroma:
+        Hd, Wd = max(st["ch"], 1), max(st["cw"], 1)
+        OR, cs, T, bd = 4 // sub_y, 4 // sub_x, 4, st["bdc"]
+    else:
+        Hd, Wd, OR, cs, T, bd = H, W, 4, 4, 8, st["bd"]
+    hp, _ = mc_seg.pad_sizes(Hd, Wd)
+    wout = max(256, (Wd + 127) & ~127)
+    out = []
+    for l in (0, 1) if st["use_l1"] else (0,):
+        sy = mc_seg.mc_stripes(
+            refs, feed[f"sg{l}n"], feed[f"sg{l}i"], feed["pu_wire"],
+            list_idx=l, OR=OR, T=T, Hpad=hp, Wout=wout, n_bands=pb_h,
+            KMAX=st["segk"], bd=bd, chroma=chroma, Hdim=Hd, Wdim=Wd,
+            sub_x=sub_x, sub_y=sub_y)
+        out.append(sy[:, :, :pb_w * cs].reshape(pb_h, OR, pb_w, cs).permute(
+            0, 2, 1, 3).reshape(N, OR, cs))
+    return out
+
+
+def _mc_section(refs_y, refs_cb, refs_cr, cell, wg, st, pb_h, pb_w,
+                feed=None):
+    """Motion compensation and the weighted/bi merge: with st["pallas_mc"]
+    per segment from the DPB rings (kernel B3), else per 4x4 cell from
+    [R, h, w] reference stacks (the JAX program's non-Pallas branch)."""
     H, W = st["H"], st["W"]
     sub_x, sub_y = max(st["sub_x"], 1), max(st["sub_y"], 1)
     bd, bdc = st["bd"], st["bdc"]
@@ -334,7 +455,14 @@ def _mc_section(refs_y, refs_cb, refs_cr, cell, wg, st, pb_h, pb_w):
     w = torch.where
 
     preds_l, preds_cb, preds_cr = [], [], []
-    for l in (0, 1) if use_l1 else (0,):
+    if st.get("pallas_mc"):
+        preds_l = _mc_stripe_blocks(refs_y, feed, st, pb_h, pb_w, N, False)
+        if has_chroma:
+            preds_cb = _mc_stripe_blocks(refs_cb, feed, st, pb_h, pb_w, N,
+                                         True)
+            preds_cr = _mc_stripe_blocks(refs_cr, feed, st, pb_h, pb_w, N,
+                                         True)
+    for l in () if st.get("pallas_mc") else (0, 1) if use_l1 else (0,):
         mvx, mvy = cell[f"mv{l}x"], cell[f"mv{l}y"]
         slot = cell[f"slot{l}"]
         preds_l.append(_mc_plane(refs_y, slot, cx + (mvx >> 2),
@@ -718,7 +846,13 @@ class FusedDecoder:
     Usage:
         fd = FusedDecoder()
         fd.plan_stream(progs)       # optional: final capacities up front
-        planes = fd.decode(prog)    # device tensors, also kept by POC
+        planes = fd.decode(prog)    # device tensors
+
+    use_pallas_mc (True on the card, False on the CPU, settable) selects
+    the production formulation; its references live in the DPB ring
+    (LRU over 2*MAX_REFS slots, slot 2*MAX_REFS kept gray), else in a dict
+    of decoded planes by POC.  last_wire_bytes: the bytes the last
+    production picture's feed upload moved.
     """
 
     def __init__(self, device="cuda"):
@@ -726,20 +860,107 @@ class FusedDecoder:
         self.packer = FeedPacker()
         self.dpb = {}
         self._order = []
+        # the production formulation on the card, as the JAX package turns
+        # it on for TPU backends
+        self.use_pallas_mc = self.device.type == "cuda"
+        self._stack = None
+        self._stack_dims = None
+        self._slot_of = {}
+        self._slot_lru = []
+        self.last_wire_bytes = None
+        # two host scratch slots of the sparse upload, used in turn; each
+        # keeps the event recorded after the copies that read it
+        self._scratch = [None, None]
+        self._scratch_event = [None, None]
+        self._scratch_turn = 0
 
     def plan_stream(self, progs):
         """Pre-size every capacity watermark from a list of pictures."""
-        self.packer.plan_stream(progs)
+        self.packer.plan_stream(progs, pallas_mc=self.use_pallas_mc)
+
+    # -- the padded DPB ring (production formulation) --
+
+    def _ensure_stack(self, prog):
+        H, W = prog.height, prog.width
+        cw = max(prog.chroma_width, 1)
+        ch = max(prog.chroma_height, 1)
+        dims = (mc_seg.pad_sizes(H, W), mc_seg.pad_sizes(ch, cw),
+                mc_seg.pad_sizes(ch, cw))
+        if self._stack is not None and self._stack_dims == dims:
+            return dims
+        self._stack = [
+            torch.full((RING_SLOTS * hh, ww),
+                       1 << (prog.bit_depth[min(c, 1)] - 1),
+                       dtype=torch.int32, device=self.device)
+            for c, (hh, ww) in enumerate(dims)]
+        self._stack_dims = dims
+        self._slot_of = {}
+        self._slot_lru = []
+        return dims
+
+    def _alloc_slot(self, poc):
+        """The ring slot of `poc`: its own if it has one (touched), else a
+        free slot, else the least recently used one."""
+        if poc in self._slot_of:
+            self._slot_lru.remove(poc)
+            self._slot_lru.append(poc)
+            return self._slot_of[poc]
+        if len(self._slot_lru) >= 2 * MAX_REFS:
+            old = self._slot_lru.pop(0)
+            slot = self._slot_of.pop(old)
+        else:
+            slot = len(self._slot_lru)
+            used = set(self._slot_of.values())
+            while slot in used:
+                slot += 1
+        self._slot_of[poc] = slot
+        self._slot_lru.append(poc)
+        return slot
+
+    def _store_stack(self, poc, planes, prog):
+        """Write planes decoded elsewhere (a seek) into a ring slot."""
+        dims = self._ensure_stack(prog)
+        slot = self._alloc_slot(poc)
+        for c in range(min(3, len(planes))):
+            hh, ww = dims[c]
+            self._stack[c][slot * hh:(slot + 1) * hh] = pad_replicate(
+                planes[c], hh, ww)
 
     def _refs(self, prog):
-        """[MAX_REFS, h, w] reference stacks per plane and the reference
-        index -> stack slot map.  References come from this decoder's DPB,
-        else from the planes the parser attached (a seek), else mid-gray."""
+        """The references of `prog` and the reference index -> slot map.
+
+        Production formulation: the rings; a reference not in the ring is
+        seeded from the planes the parser attached (a seek), else reads
+        the gray slot.  Else: [MAX_REFS, h, w] stacks per plane from this
+        decoder's planes, the attached planes, or mid-gray."""
         pocs = list(prog.ref_pocs)
         H, W = prog.height, prog.width
         cw = max(prog.chroma_width, 1)
         ch = max(prog.chroma_height, 1)
         dev = self.device
+
+        def attached(i):
+            if i < len(prog.ref_planes) and prog.ref_planes[i] and \
+                    prog.ref_planes[i][0] is not None:
+                return [torch.from_numpy(p.astype(np.int32)).to(dev)
+                        for p in prog.ref_planes[i] if p is not None]
+            return None
+
+        if self.use_pallas_mc:
+            self._ensure_stack(prog)
+            slot_map = {}
+            for i, poc in enumerate(pocs[:MAX_REFS]):
+                if poc not in self._slot_of:
+                    planes = attached(i)
+                    if planes is not None:
+                        self._store_stack(poc, planes, prog)
+                if poc in self._slot_of:
+                    # an active reference must not be evicted by this
+                    # picture's own slot
+                    self._slot_lru.remove(poc)
+                    self._slot_lru.append(poc)
+                slot_map[i] = self._slot_of.get(poc, 2 * MAX_REFS)
+            return self._stack, slot_map
 
         def full(shape, v):
             return torch.full(shape, v, dtype=torch.int32, device=dev)
@@ -747,13 +968,8 @@ class FusedDecoder:
         slot_map = {}
         stack = [[], [], []]
         for i, poc in enumerate(pocs[:MAX_REFS]):
-            if poc in self.dpb:
-                planes = self.dpb[poc]
-            elif (i < len(prog.ref_planes) and prog.ref_planes[i] and
-                  prog.ref_planes[i][0] is not None):
-                planes = [torch.from_numpy(p.astype(np.int32)).to(dev)
-                          for p in prog.ref_planes[i] if p is not None]
-            else:
+            planes = self.dpb.get(poc) or attached(i)
+            if planes is None:
                 planes = [full((H, W), 1 << (prog.bit_depth[0] - 1))]
                 if prog.chroma_width:
                     planes += [full((ch, cw), 1 << (prog.bit_depth[c] - 1))
@@ -782,10 +998,19 @@ class FusedDecoder:
         sub_y = H // prog.chroma_height if has_chroma else 1
         bd = prog.bit_depth[0]
         bdc = prog.bit_depth[1] if has_chroma else bd
+        pallas = bool(self.use_pallas_mc)
 
         refs, slot_map = self._refs(prog)
+        slot_row = None
+        if pallas:
+            # the fused store's slot, allocated before packing: the
+            # program writes it through the shipped per-plane ring rows
+            slot = self._alloc_slot(prog.poc)
+            slot_row = np.array([slot * self._stack_dims[c][0]
+                                 for c in range(3)], np.int32)
         pk = self.packer
-        layout, buf, lgs, n_slices = pk.pack(prog, slot_map)
+        layout, buf, lgs, n_slices = pk.pack(prog, slot_map, slot_row,
+                                             pallas_mc=pallas)
 
         sft = None
         if prog.scaling_factors is not None:
@@ -817,12 +1042,64 @@ class FusedDecoder:
             "steps_cap": pk.caps["steps"] or 1,
             "intra_bins": tuple(sorted(pk.intra_lgs)),
             "pallas_intra": True,
+            "pallas_mc": pallas,
+            "segk": pk.caps["segk"] or 1,
+            "fuse_store": pallas,
+            "g4_half": pallas,
         }
-        dbuf = torch.from_numpy(buf).to(self.device)
-        out = _compiled_impl(refs[0], refs[1], refs[2], dbuf, sft, st, layout,
-                             host_buf=buf)
-        self._store(prog.poc, out)
-        return out
+        if not pallas:
+            dbuf = torch.from_numpy(buf).to(self.device)
+            out = _compiled_impl(refs[0], refs[1], refs[2], dbuf, sft, st,
+                                 layout, host_buf=buf)
+            self._store(prog.poc, out)
+            return out
+        dbuf = self._sparse_upload(buf)
+        out_all = _compiled_impl(refs[0], refs[1], refs[2], dbuf, sft, st,
+                                 layout, host_buf=buf)
+        n_pl = 3 if has_chroma else 1
+        self._stack = list(out_all[n_pl:])
+        return tuple(out_all[:n_pl])
+
+    def _sparse_upload(self, buf):
+        """Upload the feed's nonzero SPARSE_BLOCK-word blocks and the
+        inverse block map, and rebuild the feed on the device (kernel B1);
+        a feed with few zero blocks goes up whole.  The compact blocks are
+        built in one of two host scratch slots (pinned on the card), used
+        in turn: before a slot is refilled, the copies that last read it
+        are waited for (their event), so pictures in flight never see
+        their upload overwritten."""
+        B = SPARSE_BLOCK
+        total = int(buf.size)
+        nb = (total + B - 1) // B
+        turn = self._scratch_turn = self._scratch_turn ^ 1
+        if self._scratch_event[turn] is not None:
+            self._scratch_event[turn].synchronize()
+            self._scratch_event[turn] = None
+        scratch = self._scratch[turn]
+        if scratch is None or scratch[1].shape[0] < nb:
+            pin = self.device.type == "cuda"
+            scratch = (torch.empty((nb, B), dtype=torch.int32,
+                                   pin_memory=pin),
+                       torch.empty(nb, dtype=torch.int32, pin_memory=pin))
+            self._scratch[turn] = scratch
+        cb_t, inv_t = scratch
+        M, ix = compact_blocks(buf, B, cb_t.numpy(), SPARSE_ROUND)
+        if M >= nb:
+            # few zero blocks: the plain upload is no larger
+            self.last_wire_bytes = total * 4
+            return torch.from_numpy(buf).to(self.device)
+        inv = inv_t.numpy()[:nb]
+        inv.fill(-1)
+        valid = ix < nb
+        inv[ix[valid]] = np.flatnonzero(valid)
+        self.last_wire_bytes = (M * B + nb) * 4
+        dcb = cb_t[:M].to(self.device, non_blocking=True)
+        dinv = inv_t[:nb].to(self.device, non_blocking=True)
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+            self._scratch_event[turn] = ev
+        return expand.expand_blocks(dcb, dinv, total=total, B=B)
 
     def _store(self, poc, planes):
         self.dpb[poc] = planes
@@ -831,3 +1108,36 @@ class FusedDecoder:
             old = self._order.pop(0)
             if old in self.dpb and old not in self._order:
                 del self.dpb[old]
+
+
+def compact_blocks_plain(buf, B: int, out, round_to: int = SPARSE_ROUND):
+    """The nonzero B-word blocks of buf, in order, into out[:M]: returns
+    (M, idx[:M]) with M rounded up to a multiple of round_to blocks
+    (padding rows zero, idx 1 << 30), or an M above out's capacity when
+    they do not fit (then out is not written)."""
+    total = buf.size
+    nb = (total + B - 1) // B
+    padded = buf if total == nb * B else np.pad(buf, (0, nb * B - total))
+    blocks = padded.reshape(nb, B)
+    nz = np.flatnonzero(blocks.any(axis=1))
+    M = max(round_to, -(-len(nz) // round_to) * round_to)
+    if M > out.shape[0]:
+        return M, np.zeros(0, np.int32)
+    out[:len(nz)] = blocks[nz]
+    out[len(nz):M] = 0
+    ix = np.full(M, 1 << 30, np.int32)
+    ix[:len(nz)] = nz
+    return M, ix
+
+
+def compact_blocks(buf, B: int, out, round_to: int = SPARSE_ROUND):
+    """compact_blocks_plain by the native tde265_compact_blocks (one pass
+    in C), into the [cap, B] int32 array out."""
+    ix = np.empty(out.shape[0], np.int32)
+    M = _native.lib().tde265_compact_blocks(
+        buf.ctypes.data_as(ct.c_void_p), buf.size, B, round_to,
+        out.ctypes.data_as(ct.c_void_p), ix.ctypes.data_as(ct.c_void_p),
+        out.shape[0])
+    if M < 0:       # more blocks than out holds
+        return out.shape[0] + 1, ix[:0]
+    return int(M), ix[:M]

@@ -38,6 +38,11 @@ SIGNATURES = {
     "tde_window_scatter": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
     "tde_intra_step": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _L, _I, _P, _I,
                        _P, _P, _P, _I, _I, _P],
+    "tde_mc_stripes": [_P, _L, _I, _P, _P, _I, _I, _P, _I, _P, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "tde_paint_pu_idx": [_P, _P, _I, _P, _I, _P, _I, _I, _I, _P],
+    "tde_residual_stripes": [_P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _P],
+    "tde_expand_blocks": [_P, _I, _P, _I, _P, _L, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -3,6 +3,12 @@
 Streams come from the in-repo encoder, as in tests/test_fused_decode.py;
 random inputs come from numpy with fixed seeds so that the JAX reference
 and the PyTorch port see identical data.
+
+Importing this module builds the whole native tree under the port's build
+lock.  Every port test module imports it while pytest collects, and under
+xdist every worker collects before any test runs, so the workers queue on
+the lock, one builds, and the native_build fixture's ninja later finds
+nothing to do.
 """
 import functools
 
@@ -11,6 +17,9 @@ import pytest
 import torch
 
 from libde265_tpu import Decoder, Encoder
+from libde265_tpu_torch import _native
+
+_native.build_tree()
 
 
 @pytest.fixture

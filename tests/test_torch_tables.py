@@ -78,12 +78,14 @@ def test_port_imports_no_jax():
         [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                        if p])
     smoke = _imported_by_chip_smoke()
-    assert "libde265_tpu_torch.ops.intra_cuda" in smoke
+    for m in ("intra_cuda", "mc_seg", "expand"):
+        assert f"libde265_tpu_torch.ops.{m}" in smoke, m
     code = f"""
 import importlib, pkgutil, sys
 import libde265_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-assert "libde265_tpu_torch.ops.intra_window" in names, names
+for m in ("intra_window", "mc_seg", "expand"):
+    assert "libde265_tpu_torch.ops." + m in names, names
 for name in names:
     importlib.import_module(name)
 for name in {smoke!r}:
