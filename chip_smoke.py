@@ -15,21 +15,28 @@ Phases (any failure raises and the script exits non-zero):
        a. a 1920x1088 P-GOP (8 frames, intra period 4) made by the in-repo
           encoder, decoded with PipelinedDecoder() (the default device);
        b. a 1920x1088 all-intra GOP (4 frames, intra period 1), decoded
-          with PipelinedDecoder(): the intra scan through the fused step;
+          with PipelinedDecoder(): the intra scan, one persistent kernel
+          launch per picture with intra blocks, no fused-step launch;
      then synced per-picture milliseconds and launches (I and P), the
      synced feed pack and intra scan of single pictures, and one
-     all-intra picture under torch.profiler (device busy and idle share);
+     all-intra picture under torch.profiler (device busy and idle share,
+     the intra kernels by name);
   4. kernels vs plain: each kernel against its plain PyTorch version on
      the card, on seeded random inputs at the 1080p shapes and on the
      inputs captured from the first I and P picture (the intra kernels on
-     the first I picture's whole step sequence); exact equality; CUDA-event
-     times of both, each kernel's device time (torch.profiler) and bound.
-     The separate B6 and B7 kernels are held here only: the decode runs
-     their device functions inside the fused step;
-  5. a 416x240 B/weighted/2-ref stream, bit-exact on the card.
+     the first I picture's whole scan); exact equality; CUDA-event times of
+     both, each kernel's device time (torch.profiler) and bound.  The
+     persistent scan also on synthetic pictures whose steps share all four
+     luma sizes.  The separate B6 and B7 kernels and the fused step (the
+     scan's body, one launch per step and size bin) are held here only:
+     the decode runs B6's gather and B7's store inside the persistent
+     scan;
+  5. small streams, bit-exact on the card: 104x72 with CTB 64 (two intra
+     sizes per plane, a chroma plane that is not a multiple of 8 wide or
+     high) and a 416x240 B/weighted/2-ref stream under both formulations.
 
-The last three lines of stdout are the kernels JSON object (the main
-path's kernels: B4, B8, B9, B10 and the fused step), the card's
+The last three lines of stdout are the kernels JSON object (all twelve
+rows: B1-B10, the fused step and the persistent scan), the card's
 nvidia-smi line and the result line {"ok": true, "device": {...}}.
 Nothing here imports JAX or the JAX package libde265_tpu.
 """
@@ -58,6 +65,7 @@ B6, B7 = "B6 border_gather", "B7 window_scatter"
 B8, B9 = "B8 luma_pass (V+H)", "B9 chroma_pass_stacked (V+H)"
 B10 = "B10 sao_plane_fused"
 STEP = "B6+B7 intra_step (fused)"
+SCAN = "B6+B7 intra_scan (persistent)"
 
 # family -> (source, TPU kernel it replaces, ops module, launch counter,
 #            integer operations per output element, counted from the source)
@@ -82,14 +90,16 @@ KERNELS = {
          "chroma_launches", 20),
     B10: ("libde265_tpu_torch/csrc/sao.cu",
           "libde265_tpu/ops/sao_pallas.py:120", "sao_cuda", "launches", 25),
-    STEP: ("libde265_tpu_torch/csrc/intra.cu",
+    SCAN: ("libde265_tpu_torch/csrc/intra.cu",
            "libde265_tpu/ops/intra_window_pallas.py:133,252",
-           "intra_cuda", "launches", 60),
+           "intra_cuda", "scan_launches", 60),
 }
-# The separate B6 and B7 kernels: the decode runs their device functions
-# inside the fused step, one launch per step, so these two are held against
-# their plain versions in phase 4 only (no main-path launch check; their
-# rows show 0 launches).
+# The separate B6 and B7 kernels and the fused step (the scan's body, one
+# launch per step and size bin): the decode runs B6's gather and B7's store
+# inside the persistent scan, one launch per picture, so these three are
+# held against their plain versions in phase 4 only, on the first I
+# picture's step sequence (no main-path launch check; their rows show 0
+# launches).
 HELD = {
     B6: ("libde265_tpu_torch/csrc/intra.cu",
          "libde265_tpu/ops/intra_window_pallas.py:133",
@@ -97,11 +107,14 @@ HELD = {
     B7: ("libde265_tpu_torch/csrc/intra.cu",
          "libde265_tpu/ops/intra_window_pallas.py:252",
          "intra_window", "scatter_launches", 6),
+    STEP: ("libde265_tpu_torch/csrc/intra.cu",
+           "libde265_tpu/ops/intra_window_pallas.py:133,252",
+           "intra_cuda", "launches", 60),
 }
 ALL = {**KERNELS, **HELD}
 NAMES = list(ALL)
-ROWS = [B1, B2, B3, B4, B5, B6, B7, B8, B9, B10, STEP]   # the kernels line
-INTRA = (STEP, B6, B7)
+ROWS = [B1, B2, B3, B4, B5, B6, B7, B8, B9, B10, STEP, SCAN]  # kernels line
+INTRA = (SCAN, STEP, B6, B7)
 
 # wrapper (module, function) -> family
 WRAPPERS = {("expand", "expand_blocks"): B1,
@@ -114,12 +127,19 @@ WRAPPERS = {("expand", "expand_blocks"): B1,
             ("deblock_cuda", "chroma_pass_stacked"): B9,
             ("deblock_cuda", "chroma_pass_stacked_h"): B9,
             ("sao_cuda", "sao_plane_fused"): B10,
+            ("intra_cuda", "intra_scan"): SCAN,
             ("intra_cuda", "intra_step"): STEP,
             ("intra_window", "border_gather"): B6,
             ("intra_window", "window_scatter"): B7}
 FAMILY = {fn: fam for (_, fn), fam in WRAPPERS.items()}
 MODULE = {fn: m for (m, fn) in WRAPPERS}
 INPLACE = ("window_scatter", "intra_step")   # update their first argument
+# Device ms of the earlier designs (PERF.md, NVIDIA H100 80GB HBM3, 700.00
+# W), printed beside this run's: B3 per 1080p P picture in its first design
+# (one CTA per segment slot of a watermark x bands grid), and the fused
+# intra step per 1080p I picture when it ran the main path (1584 launches)
+B3_FIRST_DESIGN_MS = 0.2100
+FUSED_STEP_MAIN_PATH_MS = 7.9225
 
 
 def log(*a):
@@ -186,6 +206,155 @@ def make_stream(path: Path, w, h, frames, qp, params):
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_bytes(data)
     return data, dt
+
+
+def corpus_content(W, H, t):
+    """The frame content of scripts/make_corpus.py (8-bit 4:2:0)."""
+    yy, xx = np.mgrid[0:H, 0:W]
+    y = ((xx * 3 + yy * 2 + 11 * t) % 220 + 16).astype(np.uint8)
+    y[(yy // 8 + xx // 8 + t) % 5 == 0] += 20
+    cb = ((xx[::2, ::2] + 5 * t) % 220 + 16).astype(np.uint8)
+    cr = ((yy[::2, ::2] * 2 - 3 * t) % 220 + 16).astype(np.uint8)
+    return y, cb, cr
+
+
+def make_conf_window_stream(path: Path):
+    """The corpus stream conf_window_104x72 (scripts/make_corpus.py): 6
+    frames of 104x72, CTB 64, intra period 4, QP 30, SEI hashes.  Its
+    chroma planes (52x36) are not a multiple of 8 wide or high, and its
+    intra pictures hold two block sizes per plane (luma 8 and 16, chroma 4
+    and 8), which no 1080p stream here does."""
+    if path.exists():
+        return path.read_bytes()
+    from libde265_tpu_torch import Encoder
+    with Encoder(qp=30, ctb_size=32) as enc:
+        enc.set_parameter("sei-hash", True)
+        enc.set_parameter("ctb-size", 64)
+        enc.set_parameter("intra-period", 4)
+        data = b"".join(enc.encode(*corpus_content(104, 72, t), pts=t)
+                        for t in range(6)) + enc.finish()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(data)
+    return data
+
+
+def synthetic_intra(seed, H=128, W=128, bit_depth=8):
+    """A seeded synthetic intra scan with all four sizes in shared steps.
+
+    Per plane (luma H x W, two 4:2:0 chroma planes) a random z-order
+    quadtree of blocks (luma 4 to 32, chroma 4 to 16), about half of
+    them inter (reconstructed before the scan, as in a P picture) and the
+    rest intra, scheduled by the native rule (native/src/intraplan.cc
+    build_intra_plan): a block's step is the largest 1 + writer step over
+    the 4x4 cells of its available border samples (0 for an inter cell),
+    moved on past steps whose bin is full (WAVE_CAP).  A border sample is
+    available when it lies in the plane in a block decoded before
+    (z-order), less about a tenth dropped at random; filter and edge flags
+    follow the native rule for luma.  Returns (planes [3] numpy int32, irec
+    [n, IREC_COLS] int32 as the feed's intra records, nsteps [3], {lg:
+    residual rows [n, s, s]})."""
+    from libde265_tpu_torch.feed import AVAIL_WORDS, IREC_COLS, WAVE_CAP
+    rng = np.random.default_rng(seed)
+    sc = 1 << (bit_depth - 8)
+    recs, planes = [], []
+    nsteps = np.zeros(3, np.int32)
+    n_res = {lg: 0 for lg in (2, 3, 4, 5)}
+    for c, (h, w, smax) in enumerate(((H, W, 32), (H // 2, W // 2, 16),
+                                      (H // 2, W // 2, 16))):
+        yy, xx = np.mgrid[0:h, 0:w]
+        planes.append((((60 + yy // 2 + xx // 3 + 40 * c) * sc +
+                        rng.integers(0, 3 * sc, (h, w))) % (1 << bit_depth)
+                       ).astype(np.int32))
+        order = []
+
+        def split(y, x, s):
+            if y >= h or x >= w:
+                return
+            if s > 4 and (rng.random() < 0.55 or y + s > h or x + s > w):
+                for dy, dx in ((0, 0), (0, s // 2), (s // 2, 0),
+                               (s // 2, s // 2)):
+                    split(y + dy, x + dx, s // 2)
+            else:
+                order.append((y, x, s))
+
+        for y in range(0, h, smax):
+            for x in range(0, w, smax):
+                split(y, x, smax)
+        wmap = np.zeros((h // 4, w // 4), np.int32)
+        done = np.zeros((h, w), bool)
+        counts = {lg: [] for lg in (2, 3, 4, 5)}
+        for y, x, s in order:
+            if rng.random() < 0.5:       # an inter block
+                done[y:y + s, x:x + s] = True
+                continue
+            lg = s.bit_length() - 1
+            nb, n2 = 4 * s + 1, 2 * s
+            j = np.arange(nb)
+            by = np.where(j < n2, y + n2 - 1 - j, y - 1)
+            bx = np.where(j <= n2, x - 1, x + j - n2 - 1)
+            byc, bxc = by.clip(0, h - 1), bx.clip(0, w - 1)
+            av = ((by >= 0) & (by < h) & (bx >= 0) & (bx < w) &
+                  done[byc, bxc] & (rng.random(nb) >= 0.1))
+            flags = 8 if av.any() else 9
+            step = int(wmap[byc[av] // 4, bxc[av] // 4].max(initial=0))
+            cnt = counts[lg]
+            while True:
+                cnt.extend([0] * (step + 1 - len(cnt)))
+                if cnt[step] < WAVE_CAP[lg]:
+                    break
+                step += 1
+            slot = cnt[step]
+            cnt[step] += 1
+            wmap[y // 4:(y + s) // 4, x // 4:(x + s) // 4] = step + 1
+            done[y:y + s, x:x + s] = True
+            mode = int(rng.choice([0, 1, 10, 26])) if rng.random() < 0.4 \
+                else int(rng.integers(0, 35))
+            edge = 0
+            if c == 0 and s < 32:
+                edge = {1: 1, 26: 2, 10: 3}.get(mode, 0)
+            if c == 0 and mode != 1 and s != 4:
+                mind = min(abs(mode - 26), abs(mode - 10))
+                thr = {8: 7, 16: 1, 32: 0}[s]
+                if mode == 0 or mind > thr:
+                    flags |= 2
+                    if s == 32 and rng.random() < 0.7:
+                        flags |= 4
+            rrow = -1
+            if rng.random() < 0.7:
+                rrow, n_res[lg] = n_res[lg], n_res[lg] + 1
+            aw = np.packbits(np.pad(av, (0, 32 * AVAIL_WORDS - nb)),
+                             bitorder="little").view(np.int32)
+            recs.append([mode, edge, y, x, flags, rrow, step, slot, c, lg,
+                         *aw])
+            nsteps[c] = max(nsteps[c], step + 1)
+    irec = np.array(recs, np.int32)
+    assert irec.shape[1] == IREC_COLS
+    res = {lg: rng.integers(-40 * sc, 41 * sc,
+                            (max(n, 1), 1 << lg, 1 << lg)).astype(np.int32)
+           for lg, n in n_res.items()}
+    return planes, irec, nsteps, res
+
+
+def synthetic_scan_inputs(seed, dev, H=128, W=128, bit_depth=8):
+    """synthetic_intra's scan as intra_scan's arguments on `dev`: (padded
+    planes, bins_by_plane, bin_res, tables, nsteps, bit depths)."""
+    import torch
+    from libde265_tpu_torch import fused_decode as fdm
+    from libde265_tpu_torch.ops import intra_cuda
+    from libde265_tpu_torch.ops import intra_window as iw
+    planes, irec, nsteps, res = synthetic_intra(seed, H, W, bit_depth)
+    bins = tuple(sorted({(("y", "cb", "cr")[int(c)], int(lg))
+                         for c, lg in irec[:, 8:10]}))
+    scap = int(irec[:, 6].max()) + 1
+    by_plane = fdm._scatter_intra_bins(torch.from_numpy(irec).to(dev), irec,
+                                       bins, scap)
+    padded = [iw.pad_plane_for_scan(torch.from_numpy(p).to(dev),
+                                    *iw.scan_pad_sizes(*p.shape))
+              for p in planes]
+    bin_res = {lg: torch.from_numpy(r).to(dev) for lg, r in res.items()}
+    tables = {lg: intra_cuda.mode_tables(1 << lg, torch.device(dev))
+              for lg in (2, 3, 4, 5)}
+    return padded, by_plane, bin_res, tables, nsteps, [bit_depth] * 3
 
 
 def oracle_programs(data):
@@ -358,34 +527,52 @@ def _add(a, b):
 
 
 class IntraTrace:
-    """A picture's intra steps: each padded plane before its first step
-    (`initial`), the calls in order, and the planes after the picture."""
+    """A picture's intra scan (the arguments of intra_cuda.intra_scan): the
+    padded planes before it (`initial`) and after it (`final`), keyed by
+    plane; the scan's other arguments (`scan`); and the same scan as the
+    fused step's calls in scan order (`calls`: (plane, args, kwargs))."""
 
-    def __init__(self):
-        self.initial, self.final, self.calls = {}, {}, []
+    def __init__(self, padded, bins, bin_res, tables, nsteps, bit_depths):
+        from libde265_tpu_torch.ops import intra_cuda
+        self.initial = {c: p.clone() for c, p in enumerate(padded)}
+        self.final = dict(enumerate(padded))    # the scan updates in place
+        self.scan = (bins, bin_res, tables, nsteps, bit_depths)
+        self.calls = []
+        for i, c, lg in intra_cuda.scan_order(bins, len(padded), nsteps):
+            v = bins[c][lg]
+            self.calls.append((c, (v["meta"], v["rrow"], v["aw"], i,
+                                   bin_res[lg], *tables[lg]),
+                               {"s": 1 << lg, "bit_depth": bit_depths[c]}))
 
-    def record(self, padded, args, kw):
-        key = padded.data_ptr()
-        if key not in self.initial:
-            self.initial[key] = padded.clone()
-            self.final[key] = padded
-        self.calls.append((key, args, kw))
+
+def scan_shape(trace):
+    """What a picture's intra scan holds: per plane its steps, its block
+    sizes with each size bin's depth, and the most valid blocks of one
+    (step, size) pair; and the number of (step, plane, size) pairs."""
+    bins, _, _, nsteps, _ = trace.scan
+    most = {}
+    for c, s, _, hm, _ in _step_views(trace):
+        most[c] = max(most.get(c, 0), int(((hm[:, 4] & 8) != 0).sum()))
+    return {"steps": [int(n) for n in nsteps],
+            "sizes (size: depth)": {c: {1 << lg: int(v["depth"])
+                                        for lg, v in sorted(b.items())}
+                                    for c, b in sorted(bins.items())},
+            "most blocks in a step": most, "pairs": len(trace.calls)}
 
 
 def capture_inputs(fd, progs):
     """Decode progs with every kernel wrapper recording its arguments;
     returns per picture {wrapper name: [(args, kwargs), ...]}, the intra
-    step as an IntraTrace under "intra_step".  Arguments are cloned, but
-    not the padded planes of the intra steps (the trace keeps them)."""
+    scan as an IntraTrace under "intra_scan".  Arguments are cloned, but
+    not the padded planes of the intra scan (the trace keeps them)."""
     import torch
     saved = {}
     per_frame = []
 
     def wrap(name, fn):
         def rec(*args, **kwargs):
-            if name == "intra_step":
-                per_frame[-1].setdefault(name, IntraTrace()).record(
-                    args[0], args[1:], dict(kwargs))
+            if name == "intra_scan":
+                per_frame[-1][name] = IntraTrace(*args, **kwargs)
             else:
                 cl = [a.clone() if isinstance(a, torch.Tensor) else a
                       for a in args]
@@ -689,6 +876,11 @@ def random_cases(dev, H=1088, W=1920):
             cases["window_scatter"].append(
                 ((padded, t(resid + 500, np.int32), y0p, x0p, valid),
                  {"s": s}))
+    # the persistent scan: synthetic pictures whose steps share all four
+    # luma sizes (no 1080p stream has more than one size per plane)
+    for seed, ibd in ((0, 8), (1, 10)):
+        cases["intra_scan"].append((synthetic_scan_inputs(seed, dev,
+                                                          bit_depth=ibd), {}))
     return cases
 
 
@@ -727,6 +919,8 @@ def plain_of(name):
         return iw.window_scatter_plain
     if name == "intra_step":
         return intra_cuda.intra_step_plain
+    if name == "intra_scan":
+        return intra_cuda.intra_scan_plain
     return sao_plane
 
 
@@ -798,6 +992,8 @@ def _call(fn, name, args, kw):
     updates, so every call sees the same inputs."""
     if name in INPLACE:
         args = (args[0].clone(), *args[1:])
+    elif name == "intra_scan":    # updates its padded planes
+        args = ([p.clone() for p in args[0]], *args[1:])
     return fn(*args, **kw)
 
 
@@ -823,8 +1019,8 @@ def compare_kernels(case_sets):
     ncases = {n: 0 for n in NAMES}
     for label, cases in case_sets:
         for name, calls in cases.items():
-            if name == "intra_step" and isinstance(calls, IntraTrace):
-                continue    # a picture's step sequence: compare_intra_trace
+            if isinstance(calls, IntraTrace):
+                continue    # a picture's scan: compare_intra_trace
             fam = FAMILY[name]
             for args, kw in calls:
                 got = _call(kernel_of(name), name, args, kw)
@@ -855,7 +1051,7 @@ def time_calls(timed):
     work (each input read once, each output written once)."""
     ms = {}
     for name, calls in timed.items():
-        if name == "intra_step" and isinstance(calls, IntraTrace):
+        if isinstance(calls, IntraTrace):
             continue
         fam = FAMILY[name]
         for args, kw in calls:
@@ -893,16 +1089,19 @@ def _step_views(trace):
 
 
 def compare_intra_trace(trace, err, ncases, ms):
-    """The first I picture's intra work, three ways, each against its
+    """The first I picture's intra work, four ways, each against its
     plain version and against the decode's own planes:
-      * the fused step: the whole step sequence replayed from the planes
-        before the first step;
+      * the persistent scan: the picture's scan, one launch, from the
+        planes before it;
+      * the fused step: the same scan as its step sequence (step, plane,
+        size bin), one launch each, from the planes before it;
       * B6: every step's borders gathered from the planes after the
         picture;
       * B7: every step's valid blocks, read back from the planes after the
         picture, scattered onto the planes before the first step (which
         must then equal the planes after it).
-    Times are one pass over the picture's calls, CUDA events for the kernel
+    Times are one pass over the picture (one call of the scan, every step
+    of the others), CUDA events for the kernel
     and the plain version alike (plain, kernel, kernel, plain; the lower of
     each pair), and the kernel's device time (torch.profiler).  At a few
     microseconds a kernel the event-timed pass measures the host's launch
@@ -940,7 +1139,13 @@ def compare_intra_trace(trace, err, ncases, ms):
             fn(planes[key], *a, **kw)
         return planes
 
+    def scan_all(fn):
+        planes = [p.clone() for p in trace.initial.values()]
+        return dict(enumerate(fn(planes, *trace.scan)))
+
     runs = {    # the device time counts the named kernel, not the copies
+        SCAN: (lambda: scan_all(kernel_of("intra_scan")),
+               lambda: scan_all(plain_of("intra_scan")), "intra_scan_kernel"),
         STEP: (lambda: replay(kernel_of("intra_step")),
                lambda: replay(plain_of("intra_step")), "intra_step_kernel"),
         B6: (lambda: gather_all(kernel_of("border_gather")),
@@ -961,30 +1166,42 @@ def compare_intra_trace(trace, err, ncases, ms):
                                 list(trace.final.values()),
                                 f"{fam} vs the decode"))
         err[fam] = max(err[fam], e)
-        ncases[fam] += len(trace.calls)
+        ncalls = 1 if fam == SCAN else len(trace.calls)
+        ncases[fam] += ncalls
         if e != 0:
             raise AssertionError(f"{fam} (first I picture): differs by {e}")
         t_p1 = median_ms(plain, reps=1, warm=0)
         t_k1 = median_ms(kern, reps=5, warm=1)
         t_k2 = median_ms(kern, reps=5, warm=0)
         t_p2 = median_ms(plain, reps=1, warm=0)
-        ms[fam] = [min(t_k1, t_k2), min(t_p1, t_p2), 0, 0, len(trace.calls),
+        ms[fam] = [min(t_k1, t_k2), min(t_p1, t_p2), 0, 0, ncalls,
                    device_ms(kern, kname)]
 
-    # bytes each function must move on this picture's data
+    # bytes each function must move on this picture's data.  A (step, bin)
+    # of the scan or the fused step reads every slot's meta, the valid
+    # slots' residual row index and availability words, their residual
+    # blocks and border samples, and stores their blocks; the fused step
+    # reads the packed angular rows of its modes in every call, the scan
+    # each (size, mode) row of the picture once.
+    aw_words = trace.calls[0][1][2].shape[2]
+    rows = set()
     for (key, s, meta, hm, hr) in views:
         K, nb, ss = meta.shape[0], 4 * s + 1, s * s
         valid = (hm[:, 4] & 8) != 0
         nv = int(valid.sum())
         nres = int((valid & (hr >= 0)).sum())
-        nmodes = len(set(hm[valid & (hm[:, 0] >= 2), 0].tolist()))
+        modes = set(hm[valid & (hm[:, 0] >= 2), 0].tolist())
+        rows |= {(s, m) for m in modes}
         ms[B6][2] += 4 * (2 * K + 2 * K * nb)
         ms[B6][3] += K * nb
         ms[B7][2] += 4 * (2 * K + 2 * nv * ss) + K
         ms[B7][3] += nv * ss
-        ms[STEP][2] += 4 * (5 * K + nv * (5 + 1 + nb) + nres * ss +
-                            3 * nmodes * ss + nv * ss)
+        step = 4 * (5 * K + nv * (1 + aw_words + nb + ss) + nres * ss)
+        ms[STEP][2] += step + 4 * len(modes) * ss
+        ms[SCAN][2] += step
         ms[STEP][3] += nv * ss
+        ms[SCAN][3] += nv * ss
+    ms[SCAN][2] += sum(4 * s * s for s, _ in rows)
 
 
 # ---------------------------------------------------------------------------
@@ -1043,10 +1260,23 @@ def main():
         if counts[n] == 0:
             raise AssertionError(f"{n}: no launch on the main path")
     log(f"launches in the main-path runs: {json.dumps(counts)}")
+    n_pics = len(progs) + len(iprogs)
+    n_i = sum(is_intra) + len(iprogs)
+    if counts[STEP] or not n_i <= counts[SCAN] <= n_pics:
+        raise AssertionError(f"intra launches: {counts[SCAN]} scans, "
+                             f"{counts[STEP]} fused steps over {n_pics} "
+                             f"pictures ({n_i} I)")
+    log(f"intra scan launches {counts[SCAN]} over {n_pics} pictures ({n_i} "
+        f"I, the rest P with or without intra blocks); fused step launches "
+        f"{counts[STEP]}")
 
     # per-picture synced times, launches and upload bytes (I/P split)
     for what, pp in (("P-GOP", progs), ("all-intra", iprogs)):
         rows, ring = per_picture(pp)
+        for ms_, c, intra, _ in rows:
+            if c[SCAN] > 1 or (intra and c[SCAN] != 1) or c[STEP]:
+                raise AssertionError(f"{what}: {c[SCAN]} scan and {c[STEP]} "
+                                     f"fused step launches in a picture")
         for kind, want in (("I", True), ("P", False)):
             sel = [r for r in rows if r[2] == want]
             if not sel:
@@ -1094,7 +1324,9 @@ def main():
                           "I" if k in caps[first_i] else "random")
               for k in timed}
     ms = time_calls(timed)
-    compare_intra_trace(caps[first_i]["intra_step"], err, ncases, ms)
+    compare_intra_trace(caps[first_i]["intra_scan"], err, ncases, ms)
+    log(f"intra scan of 1080p I picture {first_i}: "
+        f"{json.dumps(scan_shape(caps[first_i]['intra_scan']))}")
     del caps, timed, rand
     for n in ROWS:
         k_ms, p_ms, nbytes, nout, ncalls, d_ms = ms[n]
@@ -1105,8 +1337,31 @@ def main():
             f"0, integer); {pic} ({ncalls} calls) {k_ms:.4f} ms "
             f"(CUDA events; device time {dev_txt}) vs plain {p_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({nbytes} bytes) on {smi}")
+    log(f"device ms per 1080p I picture: the persistent scan {ms[SCAN][5]} "
+        f"(1 launch) vs the fused step {ms[STEP][5]} in this run "
+        f"({ms[STEP][4]} launches; {FUSED_STEP_MAIN_PATH_MS} when it ran the "
+        f"main path); B3 device ms per 1080p P picture {ms[B3][5]} "
+        f"({ms[B3][4]} launches) vs {B3_FIRST_DESIGN_MS} in its first "
+        f"design; on {smi}")
 
-    # ---- phase 5: small B / weighted / 2-ref stream ----
+    # ---- phase 5: small streams ----
+    # 104x72, CTB 64 (the corpus stream conf_window_104x72): two intra
+    # block sizes per plane (the multi-bin scan) and a 52x36 chroma plane
+    # whose last deblocking edges lie 4 samples from its end
+    cdata = make_conf_window_stream(BUILD / "chip_smoke" / "104x72.h265")
+    _, cprogs = oracle_programs(cdata)
+    pd = lt.PipelinedDecoder()
+    reset_counts()
+    couts = pd.decode_stream(cdata)
+    torch.cuda.synchronize()
+    c = read_counts()
+    assert_bit_exact(couts, cprogs, "104x72")
+    if c[SCAN] == 0 or c[STEP]:
+        raise AssertionError(f"104x72: {c[SCAN]} scan, {c[STEP]} fused step "
+                             f"launches")
+    log(f"104x72 (CTB 64, intra period 4): {len(cprogs)} frames bit-exact; "
+        f"launches {json.dumps(c)}")
+
     bdata, _ = make_stream(BUILD / "chip_smoke" / "416x240_bw.h265", 416, 240,
                            8, 30, {"intra-period": 8, "b-slices": True,
                                    "weighted-pred": True, "num-refs": 2})

@@ -24,7 +24,11 @@
 // 11 x 71 luma samples for 4 x 64 outputs) and does 2 x T multiply-adds a
 // sample, ~4 integer operations a byte, so it is bound by the bytes of
 // the windows (and below 1 ms at 1080p by launch and tail latency); B2 and
-// B5 move a few bytes per output and are bound by memory.
+// B5 move a few bytes per output and are bound by memory.  B3's first
+// design gave each segment slot of a (watermark x bands) grid one
+// 128-thread CTA, and every output re-read its T samples through L1; here
+// a warp does a segment, from a window staged in shared memory.
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,7 +46,10 @@ __constant__ int kEpel[8][4] = {{0, 64, 0, 0},    {-2, 58, 10, -2},
 constexpr int kPadL = 128;  // ops/mc_seg.py PADL
 constexpr int kPadT = 16;   // ops/mc_seg.py PADT
 constexpr int kWMax = 64;   // widest segment (a 64-wide luma PU)
-constexpr int kRMax = 11;   // OR + T - 1 rows of a luma window
+constexpr int kORMax = 4;   // output rows of a band (luma 4, chroma 4/sub_y)
+constexpr int kWinCols = kWMax + 7;  // w + T - 1 columns of a window row
+constexpr int kMcWarps = 8;        // B3: warps of a CTA
+constexpr int kMcSegsPerWarp = 2;  // B3: segments a warp takes in turn
 
 __device__ __forceinline__ int wrap16(int v) {
   return ((v + 32768) & 0xFFFF) - 32768;
@@ -56,24 +63,20 @@ __device__ __forceinline__ int pu_index(const int32_t* words, int k) {
   return (words[k >> 1] >> ((k & 1) * 16)) & 0xFFFF;
 }
 
-// B3: one CTA per (segment k, band).  The horizontal pass over the
-// window's OR+T-1 rows goes to shared memory (>> bd-8, int16 wrap), the
-// vertical pass writes the stripe (>> 6, int16 wrap): the filter-always
-// formulation of mc_pallas (phase 0 is the copy row).
-__global__ void mc_kernel(const int32_t* __restrict__ refs, long long ref_rows,
-                          int ref_cols, const int32_t* __restrict__ nseg,
-                          const int32_t* __restrict__ sidx, int kp, int kmax,
-                          const int32_t* __restrict__ pu, int pcap,
-                          int32_t* __restrict__ out, int wout, int list_idx,
-                          int OR, int T, int hpad, int bd, int chroma,
-                          int hdim, int wdim, int sub_x, int sub_y) {
-  __shared__ int th[kRMax * kWMax];
-  const int k = blockIdx.x, band = blockIdx.y;
-  const int n = min(nseg[band], kmax);
-  if (k >= n) return;
-  const int idx = min(pu_index(sidx + (long long)band * kp, k), pcap - 1);
-  const int32_t* p = pu + (long long)idx * 5;
-  const int mvw = p[list_idx], meta = p[2], geo = p[4];
+// One segment of B3 on one warp: its (OR+T-1) x (ws+T-1) reference window
+// from the ring into `win` by asynchronous copies (lanes on consecutive
+// columns, coalesced; ring rows and columns clamped), the horizontal pass
+// from the window to int16 rows in `th` (>> bd-8, int16 wrap), the
+// vertical pass from those to the band's stripe (>> 6, int16 wrap): the
+// filter-always formulation of mc_pallas (phase 0 is the copy row).
+// Segments wider than the plain version's window (64 luma columns, 64 /
+// sub_x chroma ones; no PU is) are cut to it, as there.
+template <int T>
+__device__ __forceinline__ void mc_segment(
+    const int32_t* __restrict__ refs, long long ref_rows, int ref_cols,
+    int mvw, int meta, int geo, int band, int32_t* __restrict__ out,
+    int wout, int list_idx, int OR, int hpad, int bd, int chroma, int hdim,
+    int wdim, int sub_x, int sub_y, int32_t* win, int16_t* th, int lane) {
   const int mvx = (int)(int16_t)(mvw & 0xFFFF);
   const int mvy = mvw >> 16;
   const int slot = (meta >> (2 + 6 * list_idx)) & 63;
@@ -99,27 +102,87 @@ __global__ void mc_kernel(const int32_t* __restrict__ refs, long long ref_rows,
     xs = x / sub_x;
     ws = cw;
   }
+  ws = min(ws, chroma ? kWMax / sub_x : kWMax);
   const long long row0 = (long long)slot * hpad + oy;
   const int* fh = T == 8 ? kQpel[fx] : kEpel[fx];
   const int* fv = T == 8 ? kQpel[fy] : kEpel[fy];
+  const int nrows = OR + T - 1, ncols = ws + T - 1;
+
+  // each pass: the lanes split into groups of a power of two of lanes, one
+  // row a group (lg2 lanes a row, 32 >> lg2 rows a pass; no division)
+  int lg2 = min(5, 32 - __clz(ncols - 1));
+  for (int r = lane >> lg2; r < nrows; r += 32 >> lg2) {
+    const int32_t* src =
+        refs + min(max(row0 + r, 0LL), ref_rows - 1) * ref_cols;
+    for (int c = lane & ((1 << lg2) - 1); c < ncols; c += 1 << lg2)
+      __pipeline_memcpy_async(win + r * kWinCols + c,
+                              src + clampi(ox + c, 0, ref_cols - 1), 4);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncwarp();
   const int shift1 = bd - 8;
-  const int nrows = OR + T - 1;
-  for (int i = threadIdx.x; i < nrows * ws; i += blockDim.x) {
-    const int r = i / ws, j = i - r * ws;
-    const long long rr = min(max(row0 + r, 0LL), ref_rows - 1);
-    const int32_t* src = refs + rr * ref_cols;
-    int acc = 0;
-    for (int t = 0; t < T; t++)
-      acc += fh[t] * src[clampi(ox + j + t, 0, ref_cols - 1)];
-    th[r * kWMax + j] = wrap16(acc >> shift1);
+  lg2 = min(5, 32 - __clz(ws - 1));
+  const int jm = (1 << lg2) - 1;
+  for (int r = lane >> lg2; r < nrows; r += 32 >> lg2) {
+    for (int j = lane & jm; j < ws; j += jm + 1) {
+      const int32_t* src = win + r * kWinCols + j;
+      int acc = 0;
+#pragma unroll
+      for (int t = 0; t < T; t++) acc += fh[t] * src[t];
+      th[r * kWMax + j] = (int16_t)wrap16(acc >> shift1);
+    }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < OR * ws; i += blockDim.x) {
-    const int r = i / ws, j = i - r * ws;
-    int acc = 0;
-    for (int t = 0; t < T; t++) acc += fv[t] * th[(r + t) * kWMax + j];
-    out[((long long)band * OR + r) * wout + xs + j] = wrap16(acc >> 6);
+  __syncwarp();
+  for (int r = lane >> lg2; r < OR; r += 32 >> lg2) {
+    int32_t* dst = out + ((long long)band * OR + r) * wout + xs;
+    for (int j = lane & jm; j < ws; j += jm + 1) {
+      int acc = 0;
+#pragma unroll
+      for (int t = 0; t < T; t++) acc += fv[t] * th[(r + t) * kWMax + j];
+      dst[j] = wrap16(acc >> 6);
+    }
   }
+  __syncwarp();  // the window and rows are reused by the warp's next segment
+}
+
+// B3: a (band, group) grid of kMcWarps-warp CTAs; warp w of group g takes
+// the band's segments (g * kMcWarps + w) * kMcSegsPerWarp onwards,
+// kMcSegsPerWarp of them, one after another (a warp past nseg[band]
+// returns at once).  The warp reads its segments' PU words first, one
+// segment a lane, and hands them out by shuffles.
+template <int T>
+__global__ void __launch_bounds__(kMcWarps * 32)
+mc_kernel(const int32_t* __restrict__ refs, long long ref_rows, int ref_cols,
+          const int32_t* __restrict__ nseg, const int32_t* __restrict__ sidx,
+          int kp, int kmax, const int32_t* __restrict__ pu, int pcap,
+          int32_t* __restrict__ out, int wout, int list_idx, int OR,
+          int hpad, int bd, int chroma, int hdim, int wdim, int sub_x,
+          int sub_y) {
+  constexpr int kRows = kORMax + T - 1;
+  __shared__ __align__(16) int32_t win_all[kMcWarps][kRows * kWinCols];
+  __shared__ int16_t th_all[kMcWarps][kRows * kWMax];
+  const int band = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = min(nseg[band], kmax);
+  const int k0 = (blockIdx.y * kMcWarps + warp) * kMcSegsPerWarp;
+  if (k0 >= n) return;
+  const int cnt = min(kMcSegsPerWarp, n - k0);
+  int mvw = 0, meta = 0, geo = 0;
+  if (lane < cnt) {
+    const int32_t* p =
+        pu + (long long)min(pu_index(sidx + (long long)band * kp, k0 + lane),
+                            pcap - 1) * 5;
+    mvw = p[list_idx];
+    meta = p[2];
+    geo = p[4];
+  }
+  for (int q = 0; q < cnt; ++q)
+    mc_segment<T>(refs, ref_rows, ref_cols, __shfl_sync(0xffffffffu, mvw, q),
+                  __shfl_sync(0xffffffffu, meta, q),
+                  __shfl_sync(0xffffffffu, geo, q), band, out, wout,
+                  list_idx, OR, hpad, bd, chroma, hdim, wdim, sub_x, sub_y,
+                  win_all[warp], th_all[warp], lane);
 }
 
 // B2: one thread per (band, 4-pixel column); list 0's segments, then list
@@ -176,13 +239,17 @@ extern "C" int tde_mc_stripes(const void* refs, long long ref_rows,
                               int T, int hpad, int bd, int chroma, int hdim,
                               int wdim, int sub_x, int sub_y, void* stream) {
   if (n_bands <= 0 || kmax <= 0) return 0;
-  if (OR + T - 1 > kRMax || OR <= 0 || (T != 4 && T != 8)) return -1;
-  dim3 grid((unsigned)kmax, (unsigned)n_bands);
-  mc_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+  if (OR <= 0 || OR > kORMax || (T != 4 && T != 8)) return -1;
+  if (chroma && (sub_x < 1 || sub_x > 2)) return -1;
+  auto kernel = T == 8 ? mc_kernel<8> : mc_kernel<4>;
+  constexpr int per_cta = kMcWarps * kMcSegsPerWarp;
+  const dim3 grid((unsigned)n_bands,
+                  (unsigned)((kmax + per_cta - 1) / per_cta));
+  kernel<<<grid, kMcWarps * 32, 0, (cudaStream_t)stream>>>(
       (const int32_t*)refs, ref_rows, ref_cols, (const int32_t*)nseg,
       (const int32_t*)sidx, kp, kmax, (const int32_t*)pu, pcap,
-      (int32_t*)out, wout, list_idx, OR, T, hpad, bd, chroma, hdim, wdim,
-      sub_x, sub_y);
+      (int32_t*)out, wout, list_idx, OR, hpad, bd, chroma, hdim, wdim, sub_x,
+      sub_y);
   return (int)cudaGetLastError();
 }
 

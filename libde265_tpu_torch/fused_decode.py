@@ -5,8 +5,9 @@ Per picture the host packs one int32 feed buffer plus a layout (``feed``),
 uploads it, and ``_compiled_impl`` runs the picture in the order of the JAX
 program: per-cell PU gather, motion compensation, coefficient densify
 (kernel B4), dequant + IDCT, residual add, PCM, the intra super-wave scan
-on padded planes (one fused kernel per step and size bin, holding kernels
-B6 and B7), deblocking (kernels B8, B9) and SAO (kernel B10).
+on padded planes (one persistent kernel per picture, running the device
+functions of kernels B6 and B7 in every step), deblocking (kernels B8, B9)
+and SAO (kernel B10).
 
 ``FusedDecoder.use_pallas_mc`` selects the formulation, as in the JAX
 package (which turns it on for TPU backends):
@@ -58,7 +59,7 @@ from .ops import coef_cuda, deblock_cuda, expand, intra_cuda, mc_seg, sao_cuda
 from .ops import deblock as dbk
 from .ops import intra_window as iw
 from .ops import transform as tx
-from .ops.intra_wave import build_mode_tables, wave_predict
+from .ops.intra_wave import wave_predict
 from .ops.mc import EPEL_FILTERS, QPEL_FILTERS
 from .ops.sao import EO_D
 
@@ -554,44 +555,34 @@ def _scatter_intra_bins(irec, irec_host, intra_bins, scap: int):
 
 
 def _scan_steps(bins_by_plane, n_planes, nsteps, dev, step_fn):
-    """Replay the super-wave steps, all planes advancing together: step,
-    then plane, then size bin ascending, step_fn(c, lg, bin, i, tables)
-    for each.  The step count and each bin's depth are host values: a step
+    """Replay the super-wave steps in intra_cuda.scan_order (step, then
+    plane, then size bin ascending), step_fn(c, lg, bin, i, tables) for
+    each.  The step count and each bin's depth are host values: a step
     beyond a bin's depth for this picture is skipped without touching the
     device."""
     lgs_all = sorted({lg for b in bins_by_plane.values() for lg in b})
-    tables = {lg: tuple(_i32(t, dev) for t in build_mode_tables(1 << lg))
-              for lg in lgs_all}
-    total = int(np.max(nsteps)) if len(nsteps) else 0
-    for i in range(total):
-        for c in sorted(bins_by_plane):
-            if c >= n_planes:
-                continue
-            for lg in sorted(bins_by_plane[c]):
-                v = bins_by_plane[c][lg]
-                if i < v["depth"]:
-                    step_fn(c, lg, v, i, tables[lg])
+    tables = {lg: intra_cuda.mode_tables(1 << lg, dev) for lg in lgs_all}
+    for i, c, lg in intra_cuda.scan_order(bins_by_plane, n_planes, nsteps):
+        step_fn(c, lg, bins_by_plane[c][lg], i, tables[lg])
 
 
 def _intra_scan_all(planes, bins_by_plane, bin_res, st, nsteps):
     """The intra scan.  With st["pallas_intra"] (the decoder's setting, as
-    on the JAX device path) each plane is padded once, every step runs on
-    the padded planes as one fused kernel launch (intra_cuda.intra_step),
-    and the planes are unpadded at the end; else the unpadded
-    gather/scatter formulation."""
+    on the JAX device path) each plane is padded once, the whole scan runs
+    on the padded planes as one persistent kernel launch
+    (intra_cuda.intra_scan), and the planes are unpadded at the end; else
+    the unpadded gather/scatter formulation."""
     if not st.get("pallas_intra", False):
         return _intra_scan_all_inner(planes, bins_by_plane, bin_res, st,
                                      nsteps)
     shapes = [p.shape for p in planes]
     padded = [iw.pad_plane_for_scan(p, *iw.scan_pad_sizes(*p.shape))
               for p in planes]
-
-    def run(c, lg, v, i, tabs):
-        intra_cuda.intra_step(padded[c], v["meta"], v["rrow"], v["aw"], i,
-                              bin_res[lg], *tabs, s=1 << lg,
-                              bit_depth=st["bd"] if c == 0 else st["bdc"])
-
-    _scan_steps(bins_by_plane, len(planes), nsteps, planes[0].device, run)
+    dev = planes[0].device
+    tables = {lg: intra_cuda.mode_tables(1 << lg, dev)
+              for lg in {lg for b in bins_by_plane.values() for lg in b}}
+    intra_cuda.intra_scan(padded, bins_by_plane, bin_res, tables, nsteps,
+                          [st["bd"]] + [st["bdc"]] * (len(planes) - 1))
     return [iw.unpad_plane(p, *shp) for p, shp in zip(padded, shapes)]
 
 
@@ -758,7 +749,11 @@ def _deblock_section(planes, feed, recs, cell, skip4, st):
                                prm["no_p"], prm["no_q"], bit_depth=bd)[
         :, 4:4 + W]
     if has_chroma:
-        Ec = Wc // 8
+        # every chroma edge, the last one too where Wc is not a multiple of
+        # 8 (104x72 4:2:0: Wc = 52, edge at x = 48); the JAX package keeps
+        # Wc // 8 (libde265_tpu/fused_decode.py:912), so on such pictures
+        # the port is held against the oracle, not against JAX
+        Ec = (Wc + 7) // 8
         segs = slice(0, Ev, sub_x)
         cqo = [_pad_edge0_cols(c, Ev)[:, segs] for c in pv["cqo"]]
         tco = _pad_edge0_cols(pv["tco"], Ev)[:, segs]
@@ -786,7 +781,9 @@ def _deblock_section(planes, feed, recs, cell, skip4, st):
                                  prm["no_p"], prm["no_q"], bit_depth=bd)[
         4:4 + H, :]
     if has_chroma:
-        Ech = Hc // 8
+        # (Hc + 7) // 8 edges, as for the vertical ones; the JAX package
+        # keeps Hc // 8 (libde265_tpu/fused_decode.py:964)
+        Ech = (Hc + 7) // 8
         segs = slice(0, Eh, sub_y)
         cqo = [pad0_rows(c)[segs] for c in ph["cqo"]]
         tco = pad0_rows(ph["tco"])[segs]

@@ -36,8 +36,8 @@ SIGNATURES = {
     "tde_sao_plane": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tde_border_gather": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
     "tde_window_scatter": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
-    "tde_intra_step": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _L, _I, _P, _I,
-                       _P, _P, _P, _I, _I, _P],
+    "tde_intra_step": [_P, _I, _I, _P],
+    "tde_intra_scan": [_P, _P],
     "tde_mc_stripes": [_P, _L, _I, _P, _P, _I, _I, _P, _I, _P, _I, _I, _I,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tde_paint_pu_idx": [_P, _P, _I, _P, _I, _P, _I, _I, _I, _P],

@@ -1,38 +1,218 @@
-"""The fused intra super-wave step (``csrc/intra.cu``, ``tde_intra_step``)
-and its plain PyTorch version.
+"""The intra scan's kernels (``csrc/intra.cu``) and their plain PyTorch
+versions: the persistent scan ``tde_intra_scan`` (``intra_scan``, the main
+path: one launch per picture) and the fused step ``tde_intra_step``
+(``intra_step``, one launch per step and size bin, held against its plain
+version by ``chip_smoke.py`` and the `gpu` tests).
 
-One call does one (plane, size, step) bin of the intra scan on the padded
-plane (``ops/intra_window.py``): the border gather (kernel B6's function),
-substitution, filtering and prediction (``ops.intra_wave.wave_predict``),
-the residual add and clip, and the store (kernel B7's function).  It
-replaces the TPU program's step ``fused_decode._wave_body(pallas=True)``:
-B6, the XLA math and B7 there, one kernel here.
+The persistent scan replaces the TPU program's loop over the steps
+(``fused_decode._intra_scan_all_inner`` with ``pallas_intra``: a
+``fori_loop`` of B6, the ``_wave_body`` math and B7).  A picture's steps
+are a chain of dependent steps (528 per plane at 1080p), each of at most
+256 small blocks, so a launch per step is bound by launch latency.  One
+CTA of 1024 threads per plane walks its plane's steps; within a step, the
+bins of the plane in turn, each with its valid slots compacted in shared
+memory and three passes over (block, sample) work items: the border gather
+with the substitution folded in (each sample finds its source by a bit
+search of the availability words), filtering with the DC sums, and
+prediction, residual add and store.  A block barrier between steps makes a
+step's stores visible to the next step: a block of step i reads only
+samples written at steps < i (the scheduler's rule, checked by
+``test_schedule_reads_only_earlier_steps``).  The records stay where
+``_scatter_intra_bins`` put them; their pointers, depths, the residual rows
+and the angular tables (packed into one word a sample,
+``packed_mode_table``) go to the kernel in one argument struct by value.
+The next (step, bin)'s records and the step's residual blocks are copied
+into shared memory asynchronously while the border gather runs; the
+prediction moves four samples (table entries, residual, store) at once.
+Bound: the bytes of the records, residual rows and stored blocks; in
+practice the chain of steps, each a few microseconds of one SM's memory
+pipeline and four barriers (PERF.md).
 
-Design: one CTA per block slot; a slot whose valid bit (``meta[k, 4] & 8``)
-is clear returns at once, so valid blocks need not lead.  The CTA has s*s
-threads, one per pixel; the raw and the filtered border (4s+1 samples
-each) sit in shared memory, and one thread runs the substitution chain.
-The CTAs of a launch read their borders while others store their blocks:
-that is exact only because the scan's schedule never marks available a
-border sample inside a valid block of the same step (samples it marks
-unavailable are read too, but substitution discards them);
-``tests/test_torch_intra_window.py`` checks the schedule of the test
-streams for it.  The step's records are read through base pointers and the step index, the
-residual through ``rrow`` straight from the size bin's residual rows, so a
-step costs one ctypes call and no tensor slicing.  The work is small (at
-most 256 blocks, 16K pixels): a step is bound by launch latency, and
-below that by the bytes of the residual rows and the stored blocks.
+The fused step: the same kernel body on one (plane, size, step) bin of
+the scan, one CTA, one launch per call.  It replaces the TPU program's step
+``fused_decode._wave_body(pallas=True)`` (B6, the XLA math and B7 there);
+the decode no longer launches it, so ``chip_smoke.py`` and the `gpu` tests
+hold it against its plain version (``intra_step_plain``: B6's plain gather,
+``ops.intra_wave.wave_predict``, B7's plain store).
+
+The kernels read the angular tables of ``build_mode_tables`` from
+``packed_mode_table``; the tables passed to the wrappers serve the plain
+versions.  The records and residual rows must be 16-byte aligned with K a
+multiple of 4, as ``_scatter_intra_bins`` makes them (K = WAVE_CAP): the
+kernel copies them 16 bytes at a time.
 """
 from __future__ import annotations
 
+import ctypes as ct
+import functools
+
+import numpy as np
 import torch
 
 from . import _build
 from . import intra_window as iw
 from ._tensors import check, on_cuda, stream_of
-from .intra_wave import wave_predict
+from .intra_wave import build_mode_tables, wave_predict
 
-launches = 0  # kernel launches since the last reset (read by chip_smoke)
+launches = 0       # fused step launches since the last reset (chip_smoke)
+scan_launches = 0  # persistent scan launches since the last reset
+
+MAX_SLOTS = 256       # csrc/intra.cu kMaxSlots: the widest bin (WAVE_CAP[2])
+BORDER_ELEMS = 4352   # csrc/intra.cu kBorderElems: K * (4s + 1) per bin
+MAX_PIXELS = 16384    # csrc/intra.cu kMaxPixels: K * s * s per bin
+
+
+class _ScanBin(ct.Structure):
+    _fields_ = [("meta", ct.c_void_p), ("rrow", ct.c_void_p),
+                ("aw", ct.c_void_p), ("res", ct.c_void_p), ("K", ct.c_int),
+                ("depth", ct.c_int), ("n_res", ct.c_int),
+                ("unused", ct.c_int)]
+
+
+class _ScanPlane(ct.Structure):
+    _fields_ = [("plane", ct.c_void_p), ("Hp", ct.c_int), ("Wp", ct.c_int),
+                ("bit_depth", ct.c_int), ("nsteps", ct.c_int),
+                ("bins", _ScanBin * 4)]
+
+
+class ScanArgs(ct.Structure):
+    """csrc/intra.cu ScanArgs, passed to tde_intra_scan by address and to
+    the kernel by value."""
+    _fields_ = [("planes", _ScanPlane * 3), ("PT", ct.c_void_p * 4),
+                ("n_planes", ct.c_int), ("pad_t", ct.c_int),
+                ("pad_l", ct.c_int), ("aw_words", ct.c_int)]
+
+
+@functools.lru_cache(maxsize=None)
+def mode_tables(s: int, device: torch.device):
+    """build_mode_tables(s) as int32 tensors on `device`, made once."""
+    return tuple(torch.as_tensor(t, dtype=torch.int32, device=device)
+                 for t in build_mode_tables(s))
+
+
+@functools.lru_cache(maxsize=None)
+def packed_mode_table(s: int, device: torch.device):
+    """build_mode_tables(s) as the one table the scan kernels read, so that
+    a sample loads one word: P0 | (P1 + 1) << 9 | WT << 18 (P0 in 0 .. 128,
+    P1 in -1 .. 129, WT in 0 .. 31); [35, s*s] int32 on `device`, made
+    once."""
+    P0, P1, WT = (np.asarray(t, np.int64) for t in build_mode_tables(s))
+    if (P0.min() < 0 or P0.max() > 511 or P1.min() < -1 or P1.max() > 510 or
+            WT.min() < 0 or WT.max() > 31):
+        raise ValueError("packed_mode_table: a table is out of range")
+    return torch.as_tensor(P0 | ((P1 + 1) << 9) | (WT << 18),
+                           dtype=torch.int32, device=device)
+
+
+def _fill_plane(a, c, plane, bit_depth, dev, name):
+    """Check a padded plane and put it into a.planes[c]."""
+    check(name, dev, torch.int32, plane)
+    if plane.dim() != 2:
+        raise ValueError(f"{name}: padded planes must be 2-D")
+    P = a.planes[c]
+    P.plane = plane.data_ptr()
+    P.Hp, P.Wp = plane.shape
+    P.bit_depth = int(bit_depth)
+    return P
+
+
+def _fill_bin(a, c, lg, meta, rrow, aw, res, tabs, depth, dev, name):
+    """Check one (plane, size) bin's records, residual rows and tables and
+    put them into a.planes[c].bins[lg - 2] with the given depth."""
+    check(name, dev, torch.int32, meta, rrow, aw, res, *tabs)
+    s = 1 << lg
+    rows, K = rrow.shape
+    if (lg not in (2, 3, 4, 5) or meta.shape != (rows, K, 5) or
+            aw.dim() != 3 or aw.shape[:2] != (rows, K) or
+            res.dim() != 3 or res.shape[1:] != (s, s) or
+            res.shape[0] == 0 or not 0 < K <= MAX_SLOTS or K % 4 or
+            K * (4 * s + 1) > BORDER_ELEMS or K * s * s > MAX_PIXELS or
+            aw.shape[2] * 32 < 4 * s + 1 or
+            a.aw_words not in (0, aw.shape[2]) or
+            any(t.shape != (35, s * s) for t in tabs)):
+        raise ValueError(f"{name}: bad records, residual or tables of plane "
+                         f"{c}, lg {lg}")
+    if any(t.data_ptr() % 16 for t in (meta, rrow, aw, res)):
+        raise ValueError(f"{name}: records and residual must be 16-byte "
+                         f"aligned (plane {c}, lg {lg})")
+    if depth > rows:
+        raise IndexError(f"{name}: depth {depth} of {rows} steps (plane {c}, "
+                         f"lg {lg})")
+    a.aw_words = aw.shape[2]
+    B = a.planes[c].bins[lg - 2]
+    B.meta, B.rrow, B.aw = meta.data_ptr(), rrow.data_ptr(), aw.data_ptr()
+    B.res, B.n_res, B.K, B.depth = res.data_ptr(), res.shape[0], K, depth
+    a.PT[lg - 2] = packed_mode_table(s, dev).data_ptr()
+
+
+def scan_order(bins_by_plane, n_planes: int, nsteps):
+    """(step, plane, lg) of the scan in order: step, then plane, then size
+    bin ascending; a step at or beyond a bin's depth (a host int) is
+    skipped, and no step reaches max(nsteps)."""
+    total = int(np.max(nsteps)) if len(nsteps) else 0
+    for i in range(total):
+        for c in sorted(bins_by_plane):
+            if c >= n_planes:
+                continue
+            for lg in sorted(bins_by_plane[c]):
+                if i < bins_by_plane[c][lg]["depth"]:
+                    yield i, c, lg
+
+
+def intra_scan_plain(padded_planes, bins_by_plane, bin_res, tables, nsteps,
+                     bit_depths):
+    """The whole intra scan of a picture on its padded planes, in place:
+    every (step, plane, size bin) of scan_order through intra_step_plain.
+
+    padded_planes: [Hp, Wp] int32 per plane; bins_by_plane: {plane: {lg:
+    {"meta" [rows, K, 5], "rrow" [rows, K], "aw" [rows, K, AVAIL_WORDS],
+    "depth" host int}}}; bin_res: {lg: [n, s, s]}; tables: {lg: (P0, P1,
+    WT)}; nsteps: the per-plane step counts (host); bit_depths: per plane.
+    Returns padded_planes."""
+    for i, c, lg in scan_order(bins_by_plane, len(padded_planes), nsteps):
+        v = bins_by_plane[c][lg]
+        intra_step_plain(padded_planes[c], v["meta"], v["rrow"], v["aw"], i,
+                         bin_res[lg], *tables[lg], s=1 << lg,
+                         bit_depth=bit_depths[c])
+    return padded_planes
+
+
+def intra_scan(padded_planes, bins_by_plane, bin_res, tables, nsteps,
+               bit_depths):
+    """intra_scan_plain's update: the persistent scan kernel (one launch)
+    on CUDA tensors, the plain version on CPU tensors; returns
+    padded_planes.  No launch when no bin has a step to run."""
+    global scan_launches
+    if not padded_planes:
+        return padded_planes
+    if not on_cuda("intra_scan", padded_planes[0]):
+        return intra_scan_plain(padded_planes, bins_by_plane, bin_res, tables,
+                                nsteps, bit_depths)
+    dev = padded_planes[0].device
+    n_planes = len(padded_planes)
+    if n_planes > 3 or len(bit_depths) < n_planes:
+        raise ValueError("intra_scan: 1 to 3 planes, a bit depth each")
+    total = int(np.max(nsteps)) if len(nsteps) else 0
+    a = ScanArgs(n_planes=n_planes, pad_t=iw.PAD_T, pad_l=iw.PAD_L,
+                 aw_words=0)
+    work = False
+    for c, plane in enumerate(padded_planes):
+        P = _fill_plane(a, c, plane, bit_depths[c], dev, "intra_scan")
+        for lg, v in bins_by_plane.get(c, {}).items():
+            depth = min(int(v["depth"]), total)
+            if depth <= 0:
+                continue
+            _fill_bin(a, c, lg, v["meta"], v["rrow"], v["aw"], bin_res[lg],
+                      tables[lg], depth, dev, "intra_scan")
+            P.nsteps = max(P.nsteps, depth)
+            work = True
+    if not work:
+        return padded_planes
+    rc = _build.lib().tde_intra_scan(ct.addressof(a),
+                                     stream_of(padded_planes[0]))
+    _build.check_launch("tde_intra_scan", rc)
+    scan_launches += 1
+    return padded_planes
 
 
 def intra_step_plain(padded, meta_all, rrow_all, aw_all, step: int, res,
@@ -64,26 +244,20 @@ def intra_step(padded, meta_all, rrow_all, aw_all, step: int, res, P0, P1,
     if not on_cuda("intra_step", padded):
         return intra_step_plain(padded, meta_all, rrow_all, aw_all, step, res,
                                 P0, P1, WT, s=s, bit_depth=bit_depth)
-    check("intra_step", padded.device, torch.int32, padded, meta_all,
-          rrow_all, aw_all, res, P0, P1, WT)
-    n_steps, K = rrow_all.shape
     if s not in (4, 8, 16, 32):
         raise ValueError(f"intra_step: block size {s}")
-    if (padded.dim() != 2 or meta_all.shape != (n_steps, K, 5) or
-            aw_all.shape[:2] != (n_steps, K) or aw_all.dim() != 3 or
-            res.dim() != 3 or res.shape[1:] != (s, s) or res.shape[0] == 0 or
-            any(t.shape != (35, s * s) for t in (P0, P1, WT))):
-        raise ValueError("intra_step: bad record, residual or table shapes")
+    n_steps, K = rrow_all.shape
     if not 0 <= step < n_steps:
         raise IndexError(f"intra_step: step {step} of {n_steps}")
     if K == 0:
         return padded
-    Hp, Wp = padded.shape
-    rc = _build.lib().tde_intra_step(
-        padded.data_ptr(), Hp, Wp, iw.PAD_T, iw.PAD_L, meta_all.data_ptr(),
-        rrow_all.data_ptr(), aw_all.data_ptr(), aw_all.shape[2], step, K,
-        res.data_ptr(), res.shape[0], P0.data_ptr(), P1.data_ptr(),
-        WT.data_ptr(), s, bit_depth, stream_of(padded))
+    a = ScanArgs(n_planes=1, pad_t=iw.PAD_T, pad_l=iw.PAD_L, aw_words=0)
+    _fill_plane(a, 0, padded, bit_depth, padded.device, "intra_step")
+    lg = s.bit_length() - 1
+    _fill_bin(a, 0, lg, meta_all, rrow_all, aw_all, res, (P0, P1, WT),
+              n_steps, padded.device, "intra_step")
+    rc = _build.lib().tde_intra_step(ct.addressof(a), step, lg,
+                                     stream_of(padded))
     _build.check_launch("tde_intra_step", rc)
     launches += 1
     return padded

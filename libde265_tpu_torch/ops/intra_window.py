@@ -14,10 +14,10 @@ with roll ladders; on the card a thread reads or writes one sample at its
 address, so neither needs windows, grouping or compaction.  Both are bound
 by device memory (and, at the scan's sizes, by launch latency): B6 moves
 K*(4s+1) samples, B7 the valid blocks' pixels.  The decode runs their
-device functions inside the fused step kernel (``ops/intra_cuda.py``), one
-launch per step; the two kernels here are the TPU kernels' one-to-one
-counterparts, held against their plain versions by ``chip_smoke.py`` and
-the `gpu` tests.
+device functions (``border_sample``, ``store_sample``) inside the
+persistent scan kernel (``ops/intra_cuda.py``), one launch per picture;
+the two kernels here are the TPU kernels' one-to-one counterparts, held
+against their plain versions by ``chip_smoke.py`` and the `gpu` tests.
 """
 from __future__ import annotations
 

@@ -5,12 +5,21 @@ random inputs come from numpy with fixed seeds so that the JAX reference
 and the PyTorch port see identical data.
 
 Importing this module builds the whole native tree under the port's build
-lock.  Every port test module imports it while pytest collects, and under
-xdist every worker collects before any test runs, so the workers queue on
-the lock, one builds, and the native_build fixture's ninja later finds
-nothing to do.
+lock, then the stream corpus (``ensure_corpus``).  Every port test module
+imports it while pytest collects, and under xdist every worker collects
+before any test runs, so the workers queue on the locks, one builds, and
+the native_build fixture's ninja and the corpus tests later find nothing
+to do.
 """
+import fcntl
 import functools
+import os
+import shutil
+import sys
+import tempfile
+import time
+from contextlib import contextmanager
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,7 +28,90 @@ import torch
 from libde265_tpu import Decoder, Encoder
 from libde265_tpu_torch import _native
 
+REPO = Path(__file__).resolve().parent.parent
+OWN_CORPUS = REPO / "build" / "tde_corpus"   # tests/test_torch_corpus.py
+CORPUS = Path("/tmp/tde_corpus")   # fixed by tests/test_native_pack.py
+
+
+@contextmanager
+def _locked(path: Path):
+    with open(path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _publish(src: Path, dst: Path, wait_s: float = 60.0):
+    """A complete copy of src at dst, unless dst holds a complete corpus.
+
+    The copy is made in a private directory beside dst and renamed to dst,
+    so no process sees it half written.  Our processes do this under a
+    lock beside dst.  A dst without its manifest is being written by a
+    process that does not take the lock (an older checkout's
+    test_corpus_sweep builds there in place): it gets wait_s to finish,
+    after which it counts as the remains of a killed build and is set
+    aside."""
+    with _locked(dst.with_name(dst.name + ".lock")):
+        deadline = time.monotonic() + wait_s
+        while (dst.exists() and not (dst / "manifest.json").exists() and
+               time.monotonic() < deadline):
+            time.sleep(0.5)
+        if (dst / "manifest.json").exists():
+            return
+        if dst.exists():
+            stale = Path(tempfile.mkdtemp(dir=dst.parent,
+                                          prefix=dst.name + ".stale."))
+            try:
+                os.rename(dst, stale / "corpus")
+            except FileNotFoundError:
+                pass
+            shutil.rmtree(stale, ignore_errors=True)
+        tmp = Path(tempfile.mkdtemp(dir=dst.parent, prefix=dst.name + "."))
+        try:
+            shutil.copytree(src, tmp, dirs_exist_ok=True)
+            tmp.chmod(0o755)
+            os.rename(tmp, dst)
+        except OSError:
+            pass    # dst appeared meanwhile: its writer completes it
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ensure_corpus() -> Path:
+    """Make the stream corpus of scripts/make_corpus.py once per checkout,
+    and put a copy where tests/test_native_pack.py reads it.
+
+    tests/test_native_pack.py and tests/test_torch_corpus.py read it, and
+    only tests/test_corpus_sweep.py used to make it, so under xdist with
+    --dist loadfile their cases skipped or passed by which file ran first.
+    This is the one test helper shared with the older tests that the port
+    may change, so the corpus is made here, at import: under the checkout's
+    build directory (OWN_CORPUS, built in a private directory and renamed
+    into place under a lock, so every worker waits while one builds), then
+    copied whole to /tmp/tde_corpus, the path that test_native_pack.py and
+    test_corpus_sweep.py fix and that other checkouts on the machine share
+    (_publish).  Returns OWN_CORPUS."""
+    build = OWN_CORPUS.parent
+    build.mkdir(parents=True, exist_ok=True)
+    with _locked(build / ".corpus.lock"):
+        if not (OWN_CORPUS / "manifest.json").exists():
+            shutil.rmtree(OWN_CORPUS, ignore_errors=True)
+            sys.path.insert(0, str(REPO / "scripts"))
+            import make_corpus
+            tmp = Path(tempfile.mkdtemp(dir=build, prefix=".tde_corpus."))
+            try:
+                make_corpus.build(tmp)
+                os.rename(tmp, OWN_CORPUS)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+    _publish(OWN_CORPUS, CORPUS)
+    return OWN_CORPUS
+
+
 _native.build_tree()
+ensure_corpus()
 
 
 @pytest.fixture

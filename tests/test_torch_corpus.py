@@ -1,0 +1,72 @@
+"""The port against the scalar oracle on the stream corpus of
+scripts/make_corpus.py: every stream that the corpus marks "exact" decoded
+by FusedDecoder(device="cpu") under the production formulation
+(use_pallas_mc, the card's default), every plane of every frame equal to
+the oracle's planes (prog.planes), tolerance 0.
+
+The corpus is made while pytest collects (tests/_torch_common.py,
+ensure_corpus), so its manifest is read here at collection; this file
+reads the checkout's own copy (OWN_CORPUS), the packer's test the copy in
+/tmp that other checkouts share.  The "nocrash"
+mutants are left out: their names depend on which decoders built them.
+The two streams with cross-component prediction raise the port's
+NotImplementedError (ROADMAP A, item 1).  The two largest streams,
+level_edge_64x8192 and level_edge_8192x64 (about 30 s of the file's 110 s
+on a CPU), are left out to keep the file near 80 s.
+
+Beyond the JAX package: conf_window_104x72 has a 52x36 chroma plane, whose
+last deblocking edges (x = 48, y = 32) the JAX package's picture program
+drops (it counts Wc // 8 and Hc // 8 chroma edges); the port counts them
+and equals the oracle there.
+"""
+import json
+import os
+
+import numpy as np
+import pytest
+
+from libde265_tpu_torch import FusedDecoder
+
+from _torch_common import CORPUS, OWN_CORPUS, programs
+from test_native_pack import STREAMS as PACK_STREAMS
+
+CCP = {"chroma444_ccp", "rext_price_ccp_444"}
+LARGEST = {"level_edge_64x8192", "level_edge_8192x64"}
+EXACT = sorted(name for name, mode in
+               json.loads((OWN_CORPUS / "manifest.json").read_text()).items()
+               if mode == "exact" and name not in LARGEST)
+
+
+def test_corpus_ready_at_collection():
+    """Both copies of the corpus are complete once _torch_common is
+    imported, and the packer test finds its streams in the shared one
+    (tests/test_native_pack.py skips the streams it does not find)."""
+    for corpus in (OWN_CORPUS, CORPUS):
+        assert (corpus / "manifest.json").exists()
+    corpus = [s for s in PACK_STREAMS if s.startswith(str(CORPUS))]
+    assert len(corpus) == 13
+    missing = [s for s in corpus if not os.path.exists(s)]
+    assert not missing, missing
+    assert "conf_window_104x72" in EXACT and CCP <= set(EXACT)
+
+
+@pytest.mark.parametrize("name", EXACT)
+def test_corpus_stream_bit_exact(native_build, name):
+    _, progs = programs((OWN_CORPUS / f"{name}.h265").read_bytes())
+    assert progs
+    fd = FusedDecoder(device="cpu")
+    fd.use_pallas_mc = True
+    fd.plan_stream(progs)
+    if name in CCP:
+        with pytest.raises(NotImplementedError, match="A2"):
+            for p in progs:
+                fd.decode(p)
+        return
+    for i, p in enumerate(progs):
+        planes = fd.decode(p)
+        want = [q for q in p.planes if q is not None]     # 4:0:0: luma only
+        assert len(planes) == len(want)
+        for c, (got, w) in enumerate(zip(planes, want)):
+            np.testing.assert_array_equal(got.numpy(), w,
+                                          err_msg=f"{name} frame {i} "
+                                                  f"plane {c}")

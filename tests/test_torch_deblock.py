@@ -53,8 +53,11 @@ def _j(a):
 
 
 LUMA = [(64, 128, 8), (72, 88, 8), (64, 128, 10)]
-CHROMA_V = [(32, 64, 2, 8), (36, 40, 4, 8), (32, 64, 2, 10)]
-CHROMA_H = [(64, 32, 2, 8), (40, 36, 4, 8), (64, 32, 2, 10)]
+# the last case of each: a chroma plane whose width and height are not
+# multiples of 8 (104x72 4:2:0: 52x36), whose last edge (x = 48, y = 32)
+# the picture program counts since the chroma edge repair
+CHROMA_V = [(32, 64, 2, 8), (36, 40, 4, 8), (32, 64, 2, 10), (36, 52, 2, 8)]
+CHROMA_H = [(64, 32, 2, 8), (40, 36, 4, 8), (64, 32, 2, 10), (52, 36, 2, 8)]
 
 
 @pytest.mark.parametrize("H,W,bd", LUMA)
@@ -111,6 +114,31 @@ def test_chroma_pass_h_matches_jax(H, W, cps, bd):
                                 rows_per_seg=cps).T
         np.testing.assert_array_equal(got[c], np.asarray(xla))
     np.testing.assert_array_equal(got, pal)
+
+
+@pytest.mark.parametrize("horizontal", [False, True], ids=["v", "h"])
+def test_chroma_pass_filters_the_ragged_last_edge(horizontal):
+    """A 52x36 chroma plane has 7 vertical and 5 horizontal edges, the last
+    one 4 samples from the picture's end: the pass with all of them differs
+    from the pass without the last one exactly around that edge."""
+    H, W = (52, 36) if horizontal else (36, 52)
+    imgs, (tcs, no_p, no_q) = _chroma_case(H, W, 2, 8, horizontal)
+    tcs = np.maximum(tcs, 4)
+    no_p, no_q = np.zeros_like(no_p), np.zeros_like(no_q)
+    if horizontal:    # params [E, S]: drop the last edge row
+        fn, kw = deblock_cuda.chroma_pass_stacked_h, {"cols_per_seg": 2}
+        tcs_f, no_p_f, no_q_f = tcs[:, :-1], no_p[:-1], no_q[:-1]
+    else:             # params [S, E]: drop the last edge column
+        fn, kw = deblock_cuda.chroma_pass_stacked, {"rows_per_seg": 2}
+        tcs_f, no_p_f, no_q_f = tcs[:, :, :-1], no_p[:, :-1], no_q[:, :-1]
+    full = fn(t32(imgs), t32(tcs), t32(no_p), t32(no_q), bit_depth=8, **kw)
+    fewer = fn(t32(imgs), t32(tcs_f), t32(no_p_f), t32(no_q_f), bit_depth=8,
+               **kw)
+    diff = (full != fewer).numpy()
+    if horizontal:
+        diff = diff.transpose(0, 2, 1)
+    cols = np.flatnonzero(diff.any(axis=(0, 1)))
+    assert cols.size and set(cols) <= {2 + 47, 2 + 48}, cols
 
 
 @pytest.mark.gpu

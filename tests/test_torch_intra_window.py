@@ -7,9 +7,20 @@ the port's side runs the plain PyTorch versions.  The records are one
 super-wave step of K disjoint blocks on a 128x192 plane (K <= 16), the
 valid ones leading as the JAX gather requires; the `gpu`-marked tests
 hold each CUDA kernel against its plain version on the card.  The schedule
-test checks, on the intra records of real test streams, the invariant that
-lets the fused step read borders and store blocks in one launch.
+tests check, on the intra records of real test streams, the invariants
+that let the fused step read borders and store blocks in one launch and
+the persistent scan run a picture's steps with a block barrier between
+them.
+
+The persistent scan (``intra_cuda.intra_scan``) is held against the JAX
+program's whole scan (``_intra_scan_all`` with ``pallas_intra``, the Pallas
+kernels in interpret mode) on a seeded synthetic schedule with all four
+luma sizes in shared steps (``chip_smoke.synthetic_intra``: no encoder
+stream here has 4x4 or 32x32 intra blocks), and on the card against its
+plain version on that schedule and on the scans captured from test streams.
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -26,7 +37,11 @@ from libde265_tpu_torch.ops import intra_cuda
 from libde265_tpu_torch.ops import intra_window as iw
 from libde265_tpu_torch.ops.intra_wave import build_mode_tables
 
-from _torch_common import cuda, gop_bytes, programs, t32  # noqa: F401
+from _torch_common import (  # noqa: F401
+    CORPUS, REPO, cuda, gop_bytes, programs, t32)
+
+sys.path.insert(0, str(REPO))
+import chip_smoke  # noqa: E402  (the synthetic schedule, shared with the card)
 
 H, W = 128, 192
 SIZES = [4, 8, 16, 32]
@@ -184,10 +199,30 @@ def test_intra_step_matches_jax_wave_body(s, bit_depth):
     assert not np.array_equal(got.numpy(), padded)
 
 
+def _stream_bytes(stream):
+    """A test GOP by name, or "104x72": the corpus stream
+    conf_window_104x72 (scripts/make_corpus.py: CTB 64, intra period 4), the
+    one geometry here with two intra block sizes per plane."""
+    if stream == "104x72":
+        return (CORPUS / "conf_window_104x72.h265").read_bytes()
+    return gop_bytes(stream)
+
+
 def _scan_bins(monkeypatch, stream):
-    """Decode a test GOP on the CPU, recording what each picture's intra
-    scan gets: [(plane shapes, {c: {lg: bin}}, nsteps)], bins as numpy."""
-    _, progs = programs(gop_bytes(stream))
+    """Each intra scan of a stream decoded on the CPU, as _intra_scan_all
+    gets it: [(plane shapes, {c: {lg: bin}}, nsteps)], bins as numpy;
+    "synthetic": the one scan of chip_smoke.synthetic_intra(0)."""
+    if stream == "synthetic":
+        planes, irec, nsteps, _ = chip_smoke.synthetic_intra(0)
+        bins = tuple(sorted({(("y", "cb", "cr")[c], lg)
+                             for c, lg in irec[:, 8:10].tolist()}))
+        by_plane = tfd._scatter_intra_bins(torch.from_numpy(irec), irec,
+                                           bins, int(irec[:, 6].max()) + 1)
+        return [([p.shape for p in planes],
+                 {c: {lg: {"meta": v["meta"].numpy(), "aw": v["aw"].numpy(),
+                           "depth": v["depth"]} for lg, v in b.items()}
+                  for c, b in by_plane.items()}, nsteps)]
+    _, progs = programs(_stream_bytes(stream))
     seen = []
     scan = tfd._intra_scan_all
 
@@ -208,12 +243,27 @@ def _scan_bins(monkeypatch, stream):
     return seen
 
 
+def _border_cells(meta, aw, s, h, w):
+    """Available border samples of a step's valid blocks: (rows, cols,
+    availability [n, 4s+1], inside the plane [n, 4s+1])."""
+    nb, n2 = 4 * s + 1, 2 * s
+    j = np.arange(nb)
+    ys, xs = meta[:, 2], meta[:, 3]
+    av = np.unpackbits(np.ascontiguousarray(aw).astype(np.int32).view(
+        np.uint8), axis=1, bitorder="little")[:, :nb].astype(bool)
+    by = np.where(j < n2, ys[:, None] + n2 - 1 - j, ys[:, None] - 1)
+    bx = np.where(j <= n2, xs[:, None] - 1, xs[:, None] + j - n2 - 1)
+    inside = (by >= 0) & (by < h) & (bx >= 0) & (bx < w)
+    return by.clip(0, h - 1), bx.clip(0, w - 1), av, inside
+
+
 @pytest.mark.parametrize("stream", ["all-intra", "p-sao", "10bit", "tiles"])
 def test_schedule_borders_avoid_own_step(native_build, monkeypatch, stream):
-    """The invariant of the fused step kernel (csrc/intra.cu): within one
-    (plane, size, step) launch no block has an available border sample
-    inside a valid block of that launch, nor outside the picture, so the
-    border reads never meet the launch's own stores."""
+    """Within one (plane, size, step) bin no block has an available border
+    sample inside a valid block of that bin, nor outside the picture: the
+    schedule's rule within one bin (test_schedule_reads_only_earlier_steps
+    checks it across the bins of a plane, the invariant of the scan kernels
+    in csrc/intra.cu)."""
     checked = shared = 0
     for shapes, bins, nsteps in _scan_bins(monkeypatch, stream):
         for c, by_lg in bins.items():
@@ -250,9 +300,203 @@ def test_schedule_borders_avoid_own_step(native_build, monkeypatch, stream):
     assert checked and shared      # available samples, steps of >1 block
 
 
+@pytest.mark.parametrize("stream", ["all-intra", "p-sao", "10bit", "tiles",
+                                    "104x72", "synthetic"])
+def test_schedule_reads_only_earlier_steps(native_build, monkeypatch,
+                                           stream):
+    """The invariant of the persistent scan kernel (csrc/intra.cu): within
+    a plane, no available border sample of a step-i block lies outside the
+    picture or in a block of step >= i of any size bin, so one CTA may run
+    a plane's steps in order with a block barrier between them."""
+    checked = 0
+    bins_per_plane = shared_sizes = 0
+    for shapes, bins, nsteps in _scan_bins(monkeypatch, stream):
+        total = int(np.max(nsteps))
+        for c, by_lg in bins.items():
+            if c >= len(shapes):
+                continue
+            h, w = shapes[c]
+            writer = np.full((h, w), -1)   # step of the block writing it
+            steps = []
+            for lg, v in by_lg.items():
+                s = 1 << lg
+                for i in range(min(v["depth"], total)):
+                    meta, aw = v["meta"][i], v["aw"][i]
+                    valid = (meta[:, 4] & 8) != 0
+                    for y, x in meta[valid, 2:4]:
+                        assert (writer[y:y + s, x:x + s] < 0).all()
+                        writer[y:y + s, x:x + s] = i
+                    if valid.any():
+                        steps.append((s, i, meta[valid], aw[valid]))
+            sizes = {}
+            for s, i, meta, aw in steps:
+                by, bx, av, inside = _border_cells(meta, aw, s, h, w)
+                assert not (av & ~inside).any(), (c, s, i)
+                assert not (av & (writer[by, bx] >= i)).any(), (c, s, i)
+                checked += int(av.sum())
+                sizes.setdefault(i, set()).add(s)
+            bins_per_plane = max(bins_per_plane, len(by_lg))
+            shared_sizes = max([shared_sizes] + [len(v) for v in
+                                                 sizes.values()])
+    assert checked
+    if stream in ("104x72", "synthetic"):   # several size bins in one step
+        assert bins_per_plane >= 2 and shared_sizes >= 2
+    if stream == "synthetic":
+        assert bins_per_plane == 4 and shared_sizes == 4
+
+
+def _synthetic_scan(bit_depth, seed=0):
+    """chip_smoke.synthetic_intra as the picture program's scan inputs on
+    the CPU: (planes, bins, bin_res, st, nsteps, irec)."""
+    planes, irec, nsteps, res = chip_smoke.synthetic_intra(
+        seed, bit_depth=bit_depth)
+    bins = tuple(sorted({(("y", "cb", "cr")[c], lg)
+                         for c, lg in irec[:, 8:10].tolist()}))
+    st = {"bd": bit_depth, "bdc": bit_depth, "pallas_intra": True,
+          "pallas_interp": True, "intra_bins": bins,
+          "steps_cap": int(irec[:, 6].max()) + 1}
+    return planes, bins, res, st, nsteps, irec
+
+
+def test_intra_scan_multi_size_matches_jax():
+    """The whole scan of a synthetic picture whose steps share all four
+    luma sizes (chroma 4 to 16): the port's padded-plane scan
+    (intra_cuda.intra_scan, its plain version on the CPU) against the JAX
+    program's (_intra_scan_all with pallas_intra, the Pallas gather and
+    scatter in interpret mode), bit-exact."""
+    planes, bins, res, st, nsteps, irec = _synthetic_scan(8)
+    by_step = {}
+    for c, lg, i in irec[:, [8, 9, 6]].tolist():
+        by_step.setdefault((c, i), set()).add(lg)
+    assert {2, 3, 4, 5} in by_step.values()
+    jb = jfd._scatter_intra_bins(jnp.asarray(irec), bins, st["steps_cap"])
+    want = jfd._intra_scan_all([jnp.asarray(p) for p in planes], jb,
+                               {lg: jnp.asarray(r) for lg, r in res.items()},
+                               st, jnp.asarray(nsteps))
+    tb = tfd._scatter_intra_bins(torch.from_numpy(irec), irec, bins,
+                                 st["steps_cap"])
+    got = tfd._intra_scan_all([torch.from_numpy(p) for p in planes], tb,
+                              {lg: torch.from_numpy(r)
+                               for lg, r in res.items()}, st, nsteps)
+    for c, (g, w_) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_),
+                                      err_msg=f"plane {c}")
+        assert not np.array_equal(g.numpy(), planes[c])
+
+
+@pytest.mark.parametrize("s", SIZES)
+def test_packed_mode_table_round_trips(s):
+    """The one-word angular table that the scan kernels read holds the JAX
+    package's three tables exactly, and is made once per size and
+    device."""
+    pt = intra_cuda.packed_mode_table(s, torch.device("cpu"))
+    assert intra_cuda.packed_mode_table(s, torch.device("cpu")) is pt
+    assert pt.shape == (35, s * s) and pt.dtype == torch.int32
+    for got, want in zip((pt & 511, ((pt >> 9) & 511) - 1, pt >> 18),
+                         jtables(s)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels against their plain versions (skip without a card)
 # ---------------------------------------------------------------------------
+
+def _on(dev, scan):
+    """A captured scan's arguments moved to `dev` (planes cloned)."""
+    padded, bins, bin_res, tables, nsteps, bds = scan
+    return ([p.clone().to(dev) for p in padded],
+            {c: {lg: {k: (x.to(dev) if torch.is_tensor(x) else x)
+                      for k, x in v.items()} for lg, v in b.items()}
+             for c, b in bins.items()},
+            {lg: r.to(dev) for lg, r in bin_res.items()},
+            {lg: tuple(t.to(dev) for t in tabs)
+             for lg, tabs in tables.items()}, nsteps, bds)
+
+
+def _check_scan_kernel(args):
+    """intra_scan (one launch) against intra_scan_plain on the same
+    arguments; returns the kernel's planes."""
+    before = intra_cuda.scan_launches
+    got = intra_cuda.intra_scan([p.clone() for p in args[0]], *args[1:])
+    assert intra_cuda.scan_launches == before + 1
+    want = intra_cuda.intra_scan_plain([p.clone() for p in args[0]],
+                                       *args[1:])
+    torch.cuda.synchronize()
+    for c, (g, w_) in enumerate(zip(got, want)):
+        assert torch.equal(g, w_), f"plane {c}"
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bit_depth", [8, 10])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_intra_scan_kernel_synthetic(cuda, seed, bit_depth):
+    _check_scan_kernel(chip_smoke.synthetic_scan_inputs(seed, cuda,
+                                                        bit_depth=bit_depth))
+
+
+@pytest.mark.gpu
+def test_intra_scan_rejects_unaligned_records(cuda):
+    """The kernel copies records 16 bytes at a time: records that are not
+    16-byte aligned, or whose slot count is not a multiple of 4, raise
+    before any launch."""
+    args = chip_smoke.synthetic_scan_inputs(0, cuda)
+    bins = args[1]
+    c, lg = 0, min(bins[0])
+    v = bins[c][lg]
+    before = intra_cuda.scan_launches
+    shifted = torch.empty(v["meta"].numel() + 1, dtype=torch.int32,
+                          device=cuda)[1:].view(v["meta"].shape)
+    shifted.copy_(v["meta"])
+    bad = {**bins, c: {**bins[c], lg: {**v, "meta": shifted}}}
+    with pytest.raises(ValueError, match="aligned"):
+        intra_cuda.intra_scan(args[0], bad, *args[2:])
+    narrow = {k: (x[:, :-1].contiguous() if k in ("meta", "rrow", "aw")
+                  else x) for k, x in v.items()}
+    bad = {**bins, c: {**bins[c], lg: narrow}}
+    with pytest.raises(ValueError, match="bad records"):
+        intra_cuda.intra_scan(args[0], bad, *args[2:])
+    assert intra_cuda.scan_launches == before
+
+
+def _capture_scans(monkeypatch, stream):
+    """The intra_cuda.intra_scan arguments of each picture of a stream that
+    has intra steps (a CPU decode), the padded planes as they were before
+    the scan."""
+    _, progs = programs(_stream_bytes(stream))
+    seen = []
+    scan = intra_cuda.intra_scan
+
+    def record(padded, bins_by_plane, bin_res, tables, nsteps, bit_depths):
+        if len(nsteps) and int(np.max(nsteps)) > 0:   # else no launch
+            seen.append(([p.clone() for p in padded], bins_by_plane,
+                         dict(bin_res), dict(tables), np.array(nsteps),
+                         list(bit_depths)))
+        return scan(padded, bins_by_plane, bin_res, tables, nsteps,
+                    bit_depths)
+
+    monkeypatch.setattr(intra_cuda, "intra_scan", record)
+    fd = FusedDecoder(device="cpu")
+    fd.plan_stream(progs)
+    for prog in progs:
+        fd.decode(prog)
+    monkeypatch.undo()
+    return seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stream", ["104x72", "10bit", "all-intra"])
+def test_intra_scan_kernel_captured(cuda, native_build, monkeypatch, stream):
+    """Every intra scan of a stream: the kernel against its plain version
+    on the card, and against the CPU decode's scan."""
+    scans = _capture_scans(monkeypatch, stream)
+    assert scans
+    for scan in scans:
+        got = _check_scan_kernel(_on(cuda, scan))
+        cpu = intra_cuda.intra_scan_plain(*_on("cpu", scan))
+        for g, w_ in zip(got, cpu):
+            assert torch.equal(g.cpu(), w_)
+
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("s", SIZES)
