@@ -25,7 +25,9 @@ Phases (any failure raises and the script exits non-zero):
      the card, on seeded random inputs at the 1080p shapes and on the
      inputs captured from the first I and P picture (the intra kernels on
      the first I picture's whole scan); exact equality; CUDA-event times of
-     both, each kernel's device time (torch.profiler) and bound.  The
+     both, each kernel's device time (torch.profiler) and bound; B5 timed
+     on the I picture's calls as well (bins with no segment), and B5's and
+     B2's calls checked to run no device work besides their kernel.  The
      persistent scan also on synthetic pictures whose steps share all four
      luma sizes.  The separate B6 and B7 kernels and the fused step (the
      scan's body, one launch per step and size bin) are held here only:
@@ -135,10 +137,14 @@ FAMILY = {fn: fam for (_, fn), fam in WRAPPERS.items()}
 MODULE = {fn: m for (m, fn) in WRAPPERS}
 INPLACE = ("window_scatter", "intra_step")   # update their first argument
 # Device ms of the earlier designs (PERF.md, NVIDIA H100 80GB HBM3, 700.00
-# W), printed beside this run's: B3 per 1080p P picture in its first design
-# (one CTA per segment slot of a watermark x bands grid), and the fused
-# intra step per 1080p I picture when it ran the main path (1584 launches)
+# W), printed beside this run's: B3, B5 and B2 per 1080p P picture in their
+# first designs (B3 and B5: one CTA per segment slot of a watermark x bands
+# grid, B5 over a zero-filled output; B2: one thread per band and column,
+# each walking every segment of its band), and the fused intra step per
+# 1080p I picture when it ran the main path (1584 launches)
 B3_FIRST_DESIGN_MS = 0.2100
+B5_FIRST_DESIGN_MS = 0.0737
+B2_FIRST_DESIGN_MS = 0.0191
 FUSED_STEP_MAIN_PATH_MS = 7.9225
 
 
@@ -507,18 +513,25 @@ def _device_us(event):
                    getattr(event, "self_cuda_time_total", 0))
 
 
-def device_ms(fn, kernel=None):
-    """Device ms of the kernels whose name contains `kernel` during fn(),
-    of all its device work (kernels and copies) when kernel is None
-    (torch.profiler, device activity only); None where the profiler sees
-    no device time."""
+def device_kernels(fn):
+    """Names of the device activities (kernels, fills, copies) that
+    torch.profiler sees during fn(), with their device us."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages()
-             if kernel is None or kernel in e.key)
+    return {e.key: _device_us(e) for e in prof.key_averages()
+            if _device_us(e) > 0}
+
+
+def device_ms(fn, kernel=None):
+    """Device ms of the kernels whose name contains `kernel` during fn(),
+    of all its device work (kernels and copies) when kernel is None
+    (torch.profiler, device activity only); None where the profiler sees
+    no device time."""
+    us = sum(v for k, v in device_kernels(fn).items()
+             if kernel is None or kernel in k)
     return us / 1000 if us > 0 else None
 
 
@@ -1324,6 +1337,30 @@ def main():
                           "I" if k in caps[first_i] else "random")
               for k in timed}
     ms = time_calls(timed)
+    # B5 on the I picture's calls too: bins the feed ships with no segment
+    b5_i = time_calls({"residual_stripes":
+                       caps[first_i]["residual_stripes"]})[B5]
+    live_i = sum(int(a[1].clamp(max=a[2].shape[1]).sum())
+                 for a, _ in caps[first_i]["residual_stripes"])
+    log(f"{B5} on 1080p I picture {first_i} ({b5_i[4]} calls, {live_i} "
+        f"segments): {b5_i[0]:.4f} ms (CUDA events; device time "
+        f"{b5_i[5]} ms) vs plain {b5_i[1]:.4f} ms, bound "
+        f"{_bound(B5, b5_i[2], b5_i[3])[0]:.4f} ms ({b5_i[2]} bytes) on "
+        f"{smi}")
+    # B5 and B2 allocate their outputs unfilled: the kernel must be the
+    # only device work of a call
+    for name, mark in (("residual_stripes", "residual_kernel"),
+                       ("paint_pu_idx", "paint_kernel")):
+        args, kw = caps[first_p][name][0]
+        seen = device_kernels(lambda: _call(kernel_of(name), name, args, kw))
+        if not seen:
+            log(f"{name}: the profiler saw no device time; its device "
+                f"work not checked")
+        elif any(mark not in k for k in seen):
+            raise AssertionError(f"{name}: device work besides its kernel: "
+                                 f"{json.dumps(seen)}")
+        else:
+            log(f"{name}: device work of one call {json.dumps(seen)}")
     compare_intra_trace(caps[first_i]["intra_scan"], err, ncases, ms)
     log(f"intra scan of 1080p I picture {first_i}: "
         f"{json.dumps(scan_shape(caps[first_i]['intra_scan']))}")
@@ -1342,7 +1379,9 @@ def main():
         f"({ms[STEP][4]} launches; {FUSED_STEP_MAIN_PATH_MS} when it ran the "
         f"main path); B3 device ms per 1080p P picture {ms[B3][5]} "
         f"({ms[B3][4]} launches) vs {B3_FIRST_DESIGN_MS} in its first "
-        f"design; on {smi}")
+        f"design; B5 {ms[B5][5]} ({ms[B5][4]} launches) vs "
+        f"{B5_FIRST_DESIGN_MS}; B2 {ms[B2][5]} ({ms[B2][4]} launch) vs "
+        f"{B2_FIRST_DESIGN_MS}; on {smi}")
 
     # ---- phase 5: small streams ----
     # 104x72, CTB 64 (the corpus stream conf_window_104x72): two intra

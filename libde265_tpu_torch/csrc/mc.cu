@@ -16,7 +16,7 @@
 // Disjoint writes: the segments of one band, of one list, come from
 // distinct PUs, and PUs partition the picture, so no two segments of a
 // band write the same lane; the residual segments of one band come from
-// distinct TUs, which partition the picture too.  Many CTAs therefore
+// distinct TUs, which partition the picture too.  B3's CTAs therefore
 // write one band's stripe without atomics.  Index words beyond
 // nseg[band] are padding (PU 0) and are never read.
 //
@@ -24,10 +24,14 @@
 // 11 x 71 luma samples for 4 x 64 outputs) and does 2 x T multiply-adds a
 // sample, ~4 integer operations a byte, so it is bound by the bytes of
 // the windows (and below 1 ms at 1080p by launch and tail latency); B2 and
-// B5 move a few bytes per output and are bound by memory.  B3's first
-// design gave each segment slot of a (watermark x bands) grid one
-// 128-thread CTA, and every output re-read its T samples through L1; here
-// a warp does a segment, from a window staged in shared memory.
+// B5 move a few bytes per output and are bound by memory (B2's bytes at
+// 1080p, about 1 MB, take less time than one launch).  B3's first design
+// gave each segment slot of a (watermark x bands) grid one 128-thread CTA,
+// and every output re-read its T samples through L1; here a warp does a
+// segment, from a window staged in shared memory.  B5's grid follows its
+// output, so each lane is written once and the output needs no fill; B2
+// reads each segment's PU word once per band (a thread per segment), not
+// once per column.
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,6 +54,9 @@ constexpr int kORMax = 4;   // output rows of a band (luma 4, chroma 4/sub_y)
 constexpr int kWinCols = kWMax + 7;  // w + T - 1 columns of a window row
 constexpr int kMcWarps = 8;        // B3: warps of a CTA
 constexpr int kMcSegsPerWarp = 2;  // B3: segments a warp takes in turn
+constexpr int kPaintThreads = 128;  // B2: threads of a CTA (one band)
+constexpr int kResTile = 1024;      // B5: stripe lanes of a CTA
+constexpr int kResThreads = kResTile / 4;  // B5: four lanes a thread
 
 __device__ __forceinline__ int wrap16(int v) {
   return ((v + 32768) & 0xFFFF) - 32768;
@@ -185,47 +192,92 @@ mc_kernel(const int32_t* __restrict__ refs, long long ref_rows, int ref_cols,
                   win_all[warp], th_all[warp], lane);
 }
 
-// B2: one thread per (band, 4-pixel column); list 0's segments, then list
-// 1's, in order; the last that covers the column wins, -1 where none does.
-__global__ void paint_kernel(const int32_t* __restrict__ nseg2,
-                             const int32_t* __restrict__ sidx2, int kp,
-                             const int32_t* __restrict__ pu, int pcap,
-                             int32_t* __restrict__ out, int n_bands, int w4,
-                             int L) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)n_bands * w4) return;
-  const int band = (int)(i / w4), col = (int)(i - (long long)band * w4);
-  int v = -1;
+// B2: one CTA per band, its row of W4 cells in shared memory.  A thread
+// takes a segment (list 0's in order, then list 1's), reads its PU index
+// and geo word once, and paints the segment's columns [x4, x4 + w4) cut to
+// [0, W4) with the segment's ordinal l * 2*kp + k in the high half and its
+// PU index in the low half, by a shared-memory atomicMax: the highest
+// ordinal that covers a cell wins, as the last covering segment does in
+// the plain version (which matters only where segments overlap; a
+// picture's do not).  The row then goes out coalesced, -1 where no
+// segment painted.  The wrapper keeps L * 2*kp <= 32768 so an ordinal
+// fits in 15 bits.
+__global__ void __launch_bounds__(kPaintThreads)
+paint_kernel(const int32_t* __restrict__ nseg2,
+             const int32_t* __restrict__ sidx2, int kp,
+             const int32_t* __restrict__ pu, int pcap,
+             int32_t* __restrict__ out, int n_bands, int w4, int L) {
+  extern __shared__ int row[];
+  const int band = blockIdx.x;
+  for (int c = threadIdx.x; c < w4; c += kPaintThreads) row[c] = -1;
+  __syncthreads();
   for (int l = 0; l < L; l++) {
     const int32_t* words = sidx2 + ((long long)band * L + l) * kp;
     const int n = min(nseg2[(long long)l * n_bands + band], 2 * kp);
-    for (int k = 0; k < n; k++) {
+    for (int k = threadIdx.x; k < n; k += kPaintThreads) {
       const int idx = pu_index(words, k);
       const int geo = pu[(long long)min(idx, pcap - 1) * 5 + 4];
-      const int x4 = geo & 0x7FF, wd4 = ((geo >> 22) & 0x1F) + 1;
-      if (col >= x4 && col < x4 + wd4) v = idx;
+      const int x4 = geo & 0x7FF;
+      const int end = min(x4 + ((geo >> 22) & 0x1F) + 1, w4);
+      const int v = ((l * 2 * kp + k) << 16) | idx;
+      for (int c = x4; c < end; c++) atomicMax(&row[c], v);
     }
   }
-  out[i] = v;
+  __syncthreads();
+  int32_t* dst = out + (long long)band * w4;
+  for (int c = threadIdx.x; c < w4; c += kPaintThreads)
+    dst[c] = row[c] < 0 ? -1 : (row[c] & 0xFFFF);
 }
 
-// B5: one CTA per (segment k, band), one thread per (row, column) of the
-// segment's OR x S slice.  Word w: srow = w & 0xFFFFF, xs = ((w >> 20) &
+// B5: one CTA per (band, kResTile-lane tile of its stripe), one thread per
+// four lanes.  Word w of a band: srow = w & 0xFFFFF, xs = ((w >> 20) &
 // 0xFFF) * 2; slice srow is rows (srow % per) * OR .. + OR of residual
-// block srow / per (per = S / OR).
-__global__ void residual_kernel(const int32_t* __restrict__ res, int N, int S,
-                                const int32_t* __restrict__ nseg,
-                                const int32_t* __restrict__ sw, int K,
-                                int32_t* __restrict__ out, int OR, int wout) {
-  const int k = blockIdx.x, band = blockIdx.y;
-  if (k >= nseg[band]) return;
-  const int w = sw[(long long)band * K + k];
-  const int srow = w & 0xFFFFF, xs = ((w >> 20) & 0xFFF) * 2;
-  const int per = S / OR, t = srow / per, r0 = (srow - t * per) * OR;
-  for (int i = threadIdx.x; i < OR * S; i += blockDim.x) {
-    const int r = i / S, c = i - r * S;
-    const int v = t < N ? res[((long long)t * S + r0 + r) * S + c] : 0;
-    out[((long long)band * OR + r) * wout + xs + c] = v;
+// block srow / per (per = S / OR), placed at lanes xs .. xs + S.  The CTA
+// first maps each lane of its tile to the offset in `res` of row 0 of the
+// slice that covers it (-1 where none does, or the block is past N: those
+// lanes are 0), one thread per (segment, column) of the band's live
+// segments; then every thread writes its four lanes of each of the OR rows
+// once, with one 16-byte store (the wrapper keeps Wout a multiple of 4;
+// the feed's is of 128).  Lanes past the plane's width up to Wout are
+// written too, so the output needs no fill.  A band's segments are disjoint (distinct TUs); a segment whose
+// lanes pass Wout is outside what the feed produces, and only its lanes
+// inside the stripe are placed.  Words beyond min(nseg, K) are padding and
+// are never read.
+__global__ void __launch_bounds__(kResThreads)
+residual_kernel(const int32_t* __restrict__ res, int N, int lg_s, int lg_or,
+                const int32_t* __restrict__ nseg,
+                const int32_t* __restrict__ sw, int K,
+                int32_t* __restrict__ out, int wout) {
+  __shared__ int src[kResTile];
+  const int band = blockIdx.x, c0 = blockIdx.y * kResTile;
+  const int S = 1 << lg_s, OR = 1 << lg_or, lg_per = lg_s - lg_or;
+  const int lanes = min(kResTile, wout - c0);
+  const int n = min(nseg[band], K);
+  if (n > 0) {
+    for (int c = threadIdx.x; c < lanes; c += kResThreads) src[c] = -1;
+    __syncthreads();
+    const int32_t* words = sw + (long long)band * K;
+    for (int i = threadIdx.x; i < (n << lg_s); i += kResThreads) {
+      const int w = words[i >> lg_s], j = i & (S - 1);
+      const int srow = w & 0xFFFFF, t = srow >> lg_per;
+      const int c = ((w >> 20) & 0xFFF) * 2 + j - c0;
+      if (t < N && c >= 0 && c < lanes)
+        src[c] = (((t << lg_s) + ((srow & ((1 << lg_per) - 1)) << lg_or))
+                  << lg_s) + j;
+    }
+    __syncthreads();
+  }
+  const int c = threadIdx.x * 4;
+  if (c >= lanes) return;
+  int o[4];
+#pragma unroll
+  for (int q = 0; q < 4; q++) o[q] = n > 0 ? src[c + q] : -1;
+  int32_t* dst = out + (long long)band * OR * wout + c0 + c;
+  for (int r = 0; r < OR; r++, dst += wout) {
+    int v[4];
+#pragma unroll
+    for (int q = 0; q < 4; q++) v[q] = o[q] >= 0 ? res[o[q] + (r << lg_s)] : 0;
+    *reinterpret_cast<int4*>(dst) = make_int4(v[0], v[1], v[2], v[3]);
   }
 }
 
@@ -256,10 +308,11 @@ extern "C" int tde_mc_stripes(const void* refs, long long ref_rows,
 extern "C" int tde_paint_pu_idx(const void* nseg2, const void* sidx2, int kp,
                                 const void* pu, int pcap, void* out,
                                 int n_bands, int w4, int L, void* stream) {
-  const long long n = (long long)n_bands * w4;
-  if (n <= 0) return 0;
-  const int threads = 256;
-  paint_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+  if (n_bands <= 0 || w4 <= 0) return 0;
+  if (L <= 0 || pcap <= 0 || (long long)L * 2 * kp > 32768 ||
+      w4 * (int)sizeof(int) > 48 * 1024)
+    return -1;
+  paint_kernel<<<(unsigned)n_bands, kPaintThreads, w4 * sizeof(int),
                  (cudaStream_t)stream>>>(
       (const int32_t*)nseg2, (const int32_t*)sidx2, kp, (const int32_t*)pu,
       pcap, (int32_t*)out, n_bands, w4, L);
@@ -270,10 +323,16 @@ extern "C" int tde_residual_stripes(const void* res, int N, int S,
                                     const void* nseg, const void* sw, int K,
                                     void* out, int n_bands, int OR, int wout,
                                     void* stream) {
-  if (n_bands <= 0 || K <= 0) return 0;
-  dim3 grid((unsigned)K, (unsigned)n_bands);
-  residual_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)res, N, S, (const int32_t*)nseg, (const int32_t*)sw, K,
-      (int32_t*)out, OR, wout);
+  if (n_bands <= 0 || wout <= 0) return 0;
+  if ((S != 4 && S != 8 && S != 16 && S != 32) ||
+      (OR != 1 && OR != 2 && OR != 4) || K < 0 || wout % 4)
+    return -1;
+  const int lg_s = __builtin_ctz((unsigned)S);
+  const int lg_or = __builtin_ctz((unsigned)OR);
+  const dim3 grid((unsigned)n_bands, (unsigned)((wout + kResTile - 1) /
+                                                kResTile));
+  residual_kernel<<<grid, kResThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)res, N, lg_s, lg_or, (const int32_t*)nseg,
+      (const int32_t*)sw, K, (int32_t*)out, wout);
   return (int)cudaGetLastError();
 }

@@ -19,10 +19,12 @@ because Mosaic pads scalar memory to (8, 128) tiles; a CUDA thread reads a
 PU's words at their addresses, so the port has no use for the folds.
 
 Segments of one band are disjoint (PUs, and TUs, partition the picture),
-so the kernels write a stripe from many CTAs without atomics;
+so B3 writes a stripe from many CTAs without atomics;
 ``tests/test_torch_fused_decode.py`` checks that on the test streams'
 feeds.  Beyond ``nseg[band]`` a band's index words are padding (PU 0) and
-are never written.
+are never read.  B5 and B2 give each band (and B5 each 1024-lane tile of
+its stripe) one CTA that writes every lane of its output once, so their
+outputs are allocated without a fill.
 """
 from __future__ import annotations
 
@@ -342,7 +344,8 @@ def paint_pu_idx(nseg2, sidx2, pu, *, n_bands: int, W4: int, L: int):
     check("paint_pu_idx", pu.device, torch.int32, nseg2, sidx2, pu)
     if (nseg2.shape != (L, n_bands) or sidx2.dim() != 3 or
             sidx2.shape[:2] != (n_bands, L) or pu.dim() != 2 or
-            pu.shape[1] != 5):
+            pu.shape[1] != 5 or pu.shape[0] == 0 or
+            L * 2 * sidx2.shape[2] > 32768 or W4 > 12288):
         raise ValueError("paint_pu_idx: bad shapes")
     out = torch.empty((n_bands, W4), dtype=torch.int32, device=pu.device)
     if out.numel() == 0:
@@ -366,11 +369,14 @@ def residual_stripes(bin_res, nseg, sw, *, OR: int, S: int, Wout: int,
     check("residual_stripes", bin_res.device, torch.int32, bin_res, nseg, sw)
     if (bin_res.dim() != 3 or bin_res.shape[1:] != (S, S) or
             nseg.shape != (n_bands,) or sw.dim() != 2 or
-            sw.shape[0] != n_bands or S % OR or S not in (4, 8, 16, 32)):
+            sw.shape[0] != n_bands or S not in (4, 8, 16, 32) or
+            OR not in (1, 2, 4) or Wout % 4 or bin_res.numel() >= 1 << 31):
         raise ValueError("residual_stripes: bad shapes or arguments")
-    out = torch.zeros((n_bands, OR, Wout), dtype=torch.int32,
+    # every lane is written by the kernel (zeros where no segment lies,
+    # K = 0 included): no fill
+    out = torch.empty((n_bands, OR, Wout), dtype=torch.int32,
                       device=bin_res.device)
-    if n_bands == 0 or sw.shape[1] == 0:
+    if out.numel() == 0:
         return out
     rc = _build.lib().tde_residual_stripes(
         bin_res.data_ptr(), bin_res.shape[0], S, nseg.data_ptr(),

@@ -171,6 +171,108 @@ def test_residual_stripes_plain_matches_jax(lg, OR):
         want.reshape(n_bands * OR, wout)[:H, :W], exp)
 
 
+def _residual_edge_case(case, lg, OR):
+    """A bin at an awkward geometry: W = 1000 with Wout = 1024 and a TU in
+    the last column ("ragged"), TUs only in the top quarter so most bands
+    have no segment ("empty_bands"), no segment at all, as the feed ships
+    the intra residual bins of an I picture ("all_zero"), or a TU in every
+    other cell with random words beyond each band's count ("garbage")."""
+    rng = np.random.default_rng([len(case), lg, OR])
+    s = 1 << lg
+    H, W = 32, 1000 if OR == 4 else 500
+    Wout = 1024 if OR == 4 else 512
+    gy, gx = H // s, W // s
+    cells = [(x * s, y * s) for y in range(gy) for x in range(gx)]
+    if case == "ragged":
+        keep = [c for c in cells if c[0] == (gx - 1) * s] + \
+            [cells[i] for i in rng.permutation(len(cells))[:8]]
+    elif case == "empty_bands":
+        keep = [c for c in cells if c[1] < max(H // 4, s)][::2]
+    elif case == "all_zero":
+        keep = []
+    else:
+        keep = cells[::2]
+    keep = list(dict.fromkeys(keep))
+    N = len(keep)
+    bin_res = rng.integers(-500, 500, (N + 2, s, s)).astype(np.int32)
+    sc = np.array([[i, x, y] for i, (x, y) in enumerate(keep)] +
+                  [[-1, 0, 0]], np.int32).reshape(-1, 3)
+    n_bands = H // OR
+    band, srow, x0 = mp.plan_residual_segments(sc, s, OR)
+    cnt, sw, K = mp.pack_band_segments(band, srow, x0, n_bands)
+    if case == "garbage":
+        sw = np.concatenate([sw, np.zeros((n_bands, 3), np.int32)], 1)
+        for b in range(n_bands):
+            sw[b, cnt[b]:] = rng.integers(-2 ** 31, 2 ** 31,
+                                          sw.shape[1] - cnt[b])
+    return bin_res, cnt, sw, H, W, Wout, s, sc
+
+
+RES_EDGES = [("ragged", 3, 4), ("ragged", 4, 2), ("ragged", 2, 2),
+             ("empty_bands", 2, 4), ("empty_bands", 5, 2),
+             ("all_zero", 3, 4), ("all_zero", 2, 2),
+             ("garbage", 5, 4), ("garbage", 3, 2)]
+
+
+@pytest.mark.parametrize("case,lg,OR", RES_EDGES)
+def test_residual_stripes_edges_match_jax(case, lg, OR):
+    bin_res, cnt, sw, H, W, Wout, s, sc = _residual_edge_case(case, lg, OR)
+    n_bands = H // OR
+    if case == "all_zero":
+        assert cnt.sum() == 0
+    want = np.asarray(mp.residual_stripes(
+        jnp.asarray(bin_res), jnp.asarray(cnt), jnp.asarray(sw), OR=OR, S=s,
+        Wout=Wout, n_bands=n_bands, interpret=True))
+    got = mc_seg.residual_stripes(t32(bin_res), t32(cnt), t32(sw), OR=OR,
+                                  S=s, Wout=Wout, n_bands=n_bands)
+    np.testing.assert_array_equal(got.numpy(), want)
+    exp = np.zeros((H, Wout), np.int32)
+    for i, x, y in sc[sc[:, 0] >= 0]:
+        exp[y:y + s, x:x + s] = bin_res[i]
+    np.testing.assert_array_equal(want.reshape(H, Wout), exp)
+
+
+def _paint_inputs(pus, H, L, rng=None, extra=0):
+    """(nseg2 [L, n_bands], sidx2 [n_bands, L, KP], wire PUs) of a PU set;
+    `extra` more words a band, random where rng is given."""
+    plans = [mc_seg.plan_segment_indices(pus, l, H) for l in range(L)]
+    kp = max(p[1].shape[1] for p in plans) + extra
+    sidx2 = np.zeros((H // 4, L, kp), np.int32)
+    if rng is not None:
+        sidx2[:] = rng.integers(0, 1 << 31, sidx2.shape)
+    for l, (cnt, sx, _) in enumerate(plans):
+        for b in range(H // 4):         # words beyond the count: padding
+            w = (int(cnt[b]) + 1) // 2
+            sidx2[b, l, :w] = sx[b, :w]
+    return np.stack([p[0] for p in plans]), sidx2, mc_seg.pus_to_wire(pus)
+
+
+@pytest.mark.parametrize("seed,L,W", [(6, 1, 200), (7, 2, 136)])
+def test_paint_pu_idx_edges_match_jax(seed, L, W):
+    """W4 not a multiple of 32 with PUs at the right edge, bands 4-7 with
+    no segment, and random index words beyond each band's count."""
+    rng = np.random.default_rng(seed)
+    H = 64
+    pus = random_pus(rng, H, W, L=L)
+    pus = pus[(pus["y"] >= 32) | (pus["y"] + pus["h"] <= 16)]
+    assert (pus["x"] + pus["w"] == W).any()
+    nseg2, sidx2, puw = _paint_inputs(pus, H, L, rng, extra=2)
+    n_bands, W4 = H // 4, W // 4
+    assert W4 % 32 and not nseg2[:, 4:8].any()
+    want = np.asarray(mp.paint_pu_idx(
+        jnp.asarray(nseg2), jnp.asarray(sidx2),
+        mp.pack_pu_geo(jnp.asarray(puw)), n_bands=n_bands, W4=W4, L=L,
+        interpret=True))
+    got = mc_seg.paint_pu_idx(t32(nseg2), t32(sidx2), t32(puw),
+                              n_bands=n_bands, W4=W4, L=L)
+    np.testing.assert_array_equal(got.numpy(), want)
+    exp = np.full((n_bands, W4), -1, np.int32)
+    for i, p in enumerate(pus):
+        exp[p["y"] // 4:(p["y"] + p["h"]) // 4,
+            p["x"] // 4:(p["x"] + p["w"]) // 4] = i
+    np.testing.assert_array_equal(want, exp)
+
+
 def _expand_case(seed, total, B):
     rng = np.random.default_rng(seed)
     nb = (total + B - 1) // B
@@ -301,17 +403,10 @@ def test_mc_stripes_kernel_matches_plain(cuda, seed, chroma, bd):  # noqa: F811
 def test_paint_pu_idx_kernel_matches_plain(cuda, L):  # noqa: F811
     rng = np.random.default_rng(L)
     H, W = 64, 192
-    pus = random_pus(rng, H, W, L=L)
-    plans = [mc_seg.plan_segment_indices(pus, l, H) for l in range(L)]
-    kp = max(p[1].shape[1] for p in plans)
-    sidx2 = np.zeros((H // 4, L, kp), np.int32)
-    for l, (_, s, _) in enumerate(plans):
-        sidx2[:, l, :s.shape[1]] = s
+    nseg2, sidx2, puw = _paint_inputs(random_pus(rng, H, W, L=L), H, L)
     _same(mc_seg.paint_pu_idx, mc_seg.paint_pu_idx_plain,
-          lambda: mc_seg.paint_launches,
-          t32(np.stack([p[0] for p in plans]), cuda), t32(sidx2, cuda),
-          t32(mc_seg.pus_to_wire(pus), cuda), n_bands=H // 4, W4=W // 4,
-          L=L)
+          lambda: mc_seg.paint_launches, t32(nseg2, cuda), t32(sidx2, cuda),
+          t32(puw, cuda), n_bands=H // 4, W4=W // 4, L=L)
 
 
 @pytest.mark.gpu
@@ -330,3 +425,101 @@ def test_expand_blocks_kernel_matches_plain(cuda):  # noqa: F811
     _same(expand.expand_blocks, expand.expand_blocks_plain,
           lambda: expand.launches, t32(blocks, cuda), t32(inv, cuda),
           total=100000, B=1024)
+
+
+def _residual_1080p(rng, lg, OR, case):
+    """B5 inputs at the 1080p shapes (272 bands; Wout 1920 luma, 1024
+    chroma): about a third of the s-grid covered ("tus", with two random
+    words beyond each band's count), no segment ("all_zero"), or a bin
+    whose word table has no column at all ("k0")."""
+    s, n_bands = 1 << lg, 272
+    Hc, Wc = (1088, 1920) if OR == 4 else (544, 960)
+    gy, gx = Hc // s, Wc // s
+    cells = np.flatnonzero(rng.random(gy * gx) < 0.35) \
+        if case == "tus" else np.zeros(0, np.int64)
+    rng.shuffle(cells)
+    n = len(cells)
+    sc = np.stack([np.arange(n), (cells % gx) * s, (cells // gx) * s],
+                  axis=1).astype(np.int32)
+    band, srow, x0 = mc_seg.plan_residual_segments(sc, s, OR)
+    cnt, sw, _ = mc_seg.pack_band_segments(band, srow, x0, n_bands)
+    if case == "tus":
+        sw = np.concatenate([sw, rng.integers(-2 ** 31, 2 ** 31,
+                                              (n_bands, 2))], 1)
+    elif case == "k0":
+        sw = np.zeros((n_bands, 0), np.int32)
+    res = rng.integers(-512, 512, (n + 7, s, s))
+    return res, cnt, sw, s, (Wc + 127) & ~127, n_bands
+
+
+RES_1080P = [(lg, OR, "tus") for lg in (2, 3, 4, 5) for OR in (4, 2)] + \
+    [(3, 4, "all_zero"), (2, 2, "all_zero"), (4, 4, "k0"), (2, 2, "k0")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lg,OR,case", RES_1080P)
+def test_residual_stripes_kernel_1080p(cuda, lg, OR, case):  # noqa: F811
+    """The kernel writes every lane (its output is not filled first): it
+    equals the plain version on two calls into freshly allocated memory,
+    the first after the cache was dirtied, and each call counts one
+    launch."""
+    rng = np.random.default_rng(lg * 10 + OR)
+    res, cnt, sw, s, wout, n_bands = _residual_1080p(rng, lg, OR, case)
+    args = (t32(res, cuda), t32(cnt, cuda), t32(sw, cuda))
+    kw = dict(OR=OR, S=s, Wout=wout, n_bands=n_bands)
+    for _ in range(2):
+        torch.full((n_bands * OR * wout,), -7, dtype=torch.int32,
+                   device=cuda)      # freed: the next output lands on it
+        _same(mc_seg.residual_stripes, mc_seg.residual_stripes_plain,
+              lambda: mc_seg.residual_launches, *args, **kw)
+
+
+@pytest.mark.gpu
+def test_residual_stripes_rejects_wout_not_multiple_of_4(cuda):  # noqa: F811
+    """The kernel stores four lanes at a time: a stripe width that is not
+    a multiple of 4 (the feed's is one of 128) raises, launching nothing."""
+    res = torch.zeros((1, 4, 4), dtype=torch.int32, device=cuda)
+    n0 = mc_seg.residual_launches
+    with pytest.raises(ValueError):
+        mc_seg.residual_stripes(
+            res, torch.zeros(2, dtype=torch.int32, device=cuda),
+            torch.zeros((2, 1), dtype=torch.int32, device=cuda), OR=4, S=4,
+            Wout=1002, n_bands=2)
+    assert mc_seg.residual_launches == n0
+
+
+def _overlapping_pus(rng, H, W, n, L):
+    """n random PU rectangles that overlap on purpose, a few reaching past
+    the right edge of the picture."""
+    pus = np.zeros(n, PU_DTYPE)
+    pus["w"] = 4 * rng.integers(1, 17, n)
+    pus["h"] = 4 * rng.integers(1, 5, n)
+    pus["x"] = 4 * rng.integers(0, W // 4, n)
+    pus["y"] = 4 * rng.integers(0, (H - pus["h"]) // 4 + 1)
+    pus["pred_flags"] = rng.integers(1, 4, n) if L == 2 else 1
+    return pus
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 2])
+def test_paint_pu_idx_kernel_overlap(cuda, L):  # noqa: F811
+    """Overlapping segments: the last one that covers a cell wins (list 0
+    in order, then list 1), as in the plain version; checked against a
+    host raster too."""
+    rng = np.random.default_rng(10 + L)
+    H, W = 64, 200
+    pus = _overlapping_pus(rng, H, W, 120, L)
+    nseg2, sidx2, puw = _paint_inputs(pus, H, L)
+    kw = dict(n_bands=H // 4, W4=W // 4, L=L)
+    args = (t32(nseg2, cuda), t32(sidx2, cuda), t32(puw, cuda))
+    for _ in range(2):
+        _same(mc_seg.paint_pu_idx, mc_seg.paint_pu_idx_plain,
+              lambda: mc_seg.paint_launches, *args, **kw)
+    exp = np.full((H // 4, W // 4), -1, np.int32)
+    for l in range(L):
+        for b in range(H // 4):
+            for k in range(nseg2[l, b]):
+                i = (sidx2[b, l, k >> 1] >> (16 * (k & 1))) & 0xFFFF
+                exp[b, pus["x"][i] // 4:(pus["x"][i] + pus["w"][i]) // 4] = i
+    np.testing.assert_array_equal(
+        mc_seg.paint_pu_idx(*args, **kw).cpu().numpy(), exp)
