@@ -17,17 +17,21 @@ Phases (any failure raises and the script exits non-zero):
        b. a 1920x1088 all-intra GOP (4 frames, intra period 1), decoded
           with PipelinedDecoder(): the intra scan, one persistent kernel
           launch per picture with intra blocks, no fused-step launch;
-     then synced per-picture milliseconds and launches (I and P), the
-     synced feed pack and intra scan of single pictures, and one
-     all-intra picture under torch.profiler (device busy and idle share,
-     the intra kernels by name);
+     then synced per-picture milliseconds and launches (I and P; B8 and
+     B9 once each in every picture), the synced feed pack, intra scan
+     and deblocking of single pictures, the deblocking section of the
+     first I and P picture alone (synced ms, device ms and device
+     operations), and one all-intra picture under torch.profiler (device
+     busy and idle share, the intra kernels by name);
   4. kernels vs plain: each kernel against its plain PyTorch version on
      the card, on seeded random inputs at the 1080p shapes and on the
      inputs captured from the first I and P picture (the intra kernels on
      the first I picture's whole scan); exact equality; CUDA-event times of
      both, each kernel's device time (torch.profiler) and bound; B5 timed
-     on the I picture's calls as well (bins with no segment), and B5's and
-     B2's calls checked to run no device work besides their kernel.  The
+     on the I picture's calls as well (bins with no segment), and B5's,
+     B2's, B8's and B9's calls checked to run no device work besides their
+     kernel.  B8 and B9 (both edge orientations of a plane in one launch)
+     are also held through the per-orientation wrappers.  The
      persistent scan also on synthetic pictures whose steps share all four
      luma sizes.  The separate B6 and B7 kernels and the fused step (the
      scan's body, one launch per step and size bin) are held here only:
@@ -64,7 +68,7 @@ INT_OPS_PER_S = 67e12       # H100 SXM peak outside the tensor cores
 B1, B2, B3 = "B1 expand_blocks", "B2 paint_pu_idx", "B3 mc_stripes"
 B4, B5 = "B4 densify_bin", "B5 residual_stripes"
 B6, B7 = "B6 border_gather", "B7 window_scatter"
-B8, B9 = "B8 luma_pass (V+H)", "B9 chroma_pass_stacked (V+H)"
+B8, B9 = "B8 deblock_luma (V+H)", "B9 deblock_chroma (V+H)"
 B10 = "B10 sao_plane_fused"
 STEP = "B6+B7 intra_step (fused)"
 SCAN = "B6+B7 intra_scan (persistent)"
@@ -85,10 +89,10 @@ KERNELS = {
          "libde265_tpu/ops/mc_pallas.py:619", "mc_seg", "residual_launches",
          2),
     B8: ("libde265_tpu_torch/csrc/deblock.cu",
-         "libde265_tpu/ops/deblock_pallas.py:212", "deblock_cuda",
+         "libde265_tpu/ops/deblock_pallas.py:212,223", "deblock_cuda",
          "luma_launches", 30),
     B9: ("libde265_tpu_torch/csrc/deblock.cu",
-         "libde265_tpu/ops/deblock_pallas.py:263", "deblock_cuda",
+         "libde265_tpu/ops/deblock_pallas.py:263,282", "deblock_cuda",
          "chroma_launches", 20),
     B10: ("libde265_tpu_torch/csrc/sao.cu",
           "libde265_tpu/ops/sao_pallas.py:120", "sao_cuda", "launches", 25),
@@ -124,6 +128,8 @@ WRAPPERS = {("expand", "expand_blocks"): B1,
             ("mc_seg", "mc_stripes"): B3,
             ("coef_cuda", "densify_bin"): B4,
             ("mc_seg", "residual_stripes"): B5,
+            ("deblock_cuda", "deblock_luma"): B8,
+            ("deblock_cuda", "deblock_chroma"): B9,
             ("deblock_cuda", "luma_pass"): B8,
             ("deblock_cuda", "luma_pass_h"): B8,
             ("deblock_cuda", "chroma_pass_stacked"): B9,
@@ -140,11 +146,16 @@ INPLACE = ("window_scatter", "intra_step")   # update their first argument
 # W), printed beside this run's: B3, B5 and B2 per 1080p P picture in their
 # first designs (B3 and B5: one CTA per segment slot of a watermark x bands
 # grid, B5 over a zero-filled output; B2: one thread per band and column,
-# each walking every segment of its band), and the fused intra step per
-# 1080p I picture when it ran the main path (1584 launches)
+# each walking every segment of its band), B8 and B9 per 1080p P picture in
+# their first design (one launch per edge orientation, one thread per
+# segment and edge, each on a clone of a zero-padded copy of the plane),
+# and the fused intra step per 1080p I picture when it ran the main path
+# (1584 launches)
 B3_FIRST_DESIGN_MS = 0.2100
 B5_FIRST_DESIGN_MS = 0.0737
 B2_FIRST_DESIGN_MS = 0.0191
+B8_FIRST_DESIGN_MS = 0.0280
+B9_FIRST_DESIGN_MS = 0.0156
 FUSED_STEP_MAIN_PATH_MS = 7.9225
 
 
@@ -442,8 +453,8 @@ def per_picture(progs):
 
 def section_ms(progs, idx):
     """Synced ms of one picture's host feed pack, feed upload (with B1),
-    motion compensation, intra scan and whole decode (the pictures before
-    it decoded first, untimed)."""
+    motion compensation, intra scan, deblocking and whole decode (the
+    pictures before it decoded first, untimed)."""
     import torch
     import libde265_tpu_torch as lt
     fdm, feed = lt.fused_decode, lt.feed
@@ -463,13 +474,15 @@ def section_ms(progs, idx):
     fd.plan_stream(progs)
     for p in progs[:idx]:
         fd.decode(p)
-    spent["upload"] = spent["mc"] = 0.0
+    spent["upload"] = spent["mc"] = spent["deblock"] = 0.0
     scan, pack = fdm._intra_scan_all, feed.FeedPacker.pack
     upload, mc = fdm.FusedDecoder._sparse_upload, fdm._mc_section
+    deblock = fdm._deblock_section
     fdm._intra_scan_all = timed("intra scan", scan)
     feed.FeedPacker.pack = timed("pack", pack)
     fdm.FusedDecoder._sparse_upload = timed("upload", upload)
     fdm._mc_section = timed("mc", mc)
+    fdm._deblock_section = timed("deblock", deblock)
     try:
         t0 = time.perf_counter()
         fd.decode(progs[idx])
@@ -478,13 +491,62 @@ def section_ms(progs, idx):
     finally:
         fdm._intra_scan_all, feed.FeedPacker.pack = scan, pack
         fdm.FusedDecoder._sparse_upload, fdm._mc_section = upload, mc
+        fdm._deblock_section = deblock
     return spent
+
+
+def deblock_section(progs, idx, reps=20):
+    """The deblocking section of one picture alone (the pictures before it
+    decoded first): its arguments captured while the picture decodes, then
+    the section run again on them: synced ms (median of reps), and device
+    ms and device operations by name per run (torch.profiler over five
+    runs, after a first profile that only warms the profiler up: kernels,
+    fills and copies; the ms is None where the profiler sees no device
+    time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import libde265_tpu_torch as lt
+    fdm = lt.fused_decode
+    fd = lt.FusedDecoder()
+    fd.plan_stream(progs)
+    for p in progs[:idx]:
+        fd.decode(p)
+    section, seen = fdm._deblock_section, []
+
+    def record(*a, **k):
+        seen.append((a, k))
+        return section(*a, **k)
+
+    fdm._deblock_section = record
+    try:
+        fd.decode(progs[idx])
+    finally:
+        fdm._deblock_section = section
+    a, k = seen[0]
+    ts = []
+    for i in range(reps + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        section(*a, **k)
+        torch.cuda.synchronize()
+        if i >= 3:
+            ts.append(1000 * (time.perf_counter() - t0))
+    for n in (1, 5):    # the first profile of a process is a warm-up
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                section(*a, **k)
+            torch.cuda.synchronize()
+    ka = [e for e in prof.key_averages() if _device_us(e) > 0]
+    us = sum(_device_us(e) for e in ka) / 5
+    return (statistics.median(ts), (us / 1000 if us > 0 else None),
+            {e.key: e.count / 5 for e in ka})
 
 
 def profile_picture(progs, idx):
     """torch.profiler over one picture (the ones before it decoded first,
     untraced): wall ms, device busy ms (the sum of kernel self times, one
-    stream), and the device ms per kernel name containing "intra"."""
+    stream), and the device ms and launches of the intra scan and of the
+    deblocking kernels (B8, B9) in the picture."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     import libde265_tpu_torch as lt
@@ -502,9 +564,10 @@ def profile_picture(progs, idx):
 
     ka = prof.key_averages()
     busy = sum(_device_us(e) for e in ka) / 1000
-    intra = {e.key: (_device_us(e) / 1000, e.count) for e in ka
-             if "intra" in e.key and _device_us(e) > 0}
-    return wall, busy, intra
+    named = {e.key: (_device_us(e) / 1000, e.count) for e in ka
+             if ("intra" in e.key or "deblock_kernel" in e.key) and
+             _device_us(e) > 0}
+    return wall, busy, named
 
 
 def _device_us(event):
@@ -573,6 +636,18 @@ def scan_shape(trace):
             "most blocks in a step": most, "pairs": len(trace.calls)}
 
 
+def _clone(x):
+    """x with every tensor in it (in lists, tuples and dicts too) cloned."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(a) for a in x)
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    return x
+
+
 def capture_inputs(fd, progs):
     """Decode progs with every kernel wrapper recording its arguments;
     returns per picture {wrapper name: [(args, kwargs), ...]}, the intra
@@ -587,11 +662,8 @@ def capture_inputs(fd, progs):
             if name == "intra_scan":
                 per_frame[-1][name] = IntraTrace(*args, **kwargs)
             else:
-                cl = [a.clone() if isinstance(a, torch.Tensor) else a
-                      for a in args]
-                kw = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
-                      for k, v in kwargs.items()}
-                per_frame[-1].setdefault(name, []).append((cl, kw))
+                per_frame[-1].setdefault(name, []).append(
+                    (_clone(list(args)), _clone(kwargs)))
             return fn(*args, **kwargs)
         return rec
 
@@ -848,6 +920,25 @@ def random_cases(dev, H=1088, W=1920):
     cases["chroma_pass_stacked_h"].append(
         ((t(imgs), *chroma_params(Hc // 8, W // 4)),
          {"bit_depth": bd, "cols_per_seg": 2}))
+    # both orientations in one call, in the picture program's layouts
+    # (edge 0 has no parameter), on blocky smooth content (a gradient and
+    # an offset per 4x4 block), where most edges pass the decisions
+    yy, xx = np.mgrid[0:H, 0:W]
+
+    def blocky(h, w):
+        off = rng.integers(-6, 7, ((h + 3) // 4, (w + 3) // 4))
+        v = (xx[:h, :w] + 2 * yy[:h, :w]) // 3 % 160 + 40 + \
+            off.repeat(4, 0).repeat(4, 1)[:h, :w]
+        return v.astype(np.int32)
+
+    cases["deblock_luma"].append(
+        ((t(blocky(H, W)), list(luma_params(H // 4, W // 8 - 1)),
+          list(luma_params(H // 8 - 1, W // 4))), {"bit_depth": bd}))
+    cases["deblock_chroma"].append(
+        ((t(blocky(Hc, Wc)), t(blocky(Hc, Wc)),
+          list(chroma_params(H // 4, (Wc + 7) // 8 - 1)),
+          list(chroma_params((Hc + 7) // 8 - 1, W // 4))),
+         {"bit_depth": bd, "sub_x": 2, "sub_y": 2}))
 
     for edge_ok in (True, False):
         args = (t(rng.integers(0, 256, (H, W)).astype(np.int32)),
@@ -900,7 +991,8 @@ def random_cases(dev, H=1088, W=1920):
 def plain_of(name):
     """The plain PyTorch version of a wrapper (run on the same device)."""
     import torch
-    from libde265_tpu_torch.ops import coef_cuda, expand, intra_cuda, mc_seg
+    from libde265_tpu_torch.ops import (coef_cuda, deblock_cuda, expand,
+                                        intra_cuda, mc_seg)
     from libde265_tpu_torch.ops import intra_window as iw
     from libde265_tpu_torch.ops.deblock import _chroma_pass, _luma_pass
     from libde265_tpu_torch.ops.sao import sao_plane
@@ -912,6 +1004,8 @@ def plain_of(name):
     if name == "densify_bin":
         return lambda cv, coff, N, S: coef_cuda.densify_bin_plain(cv, coff,
                                                                   N, S)
+    if name in ("deblock_luma", "deblock_chroma"):
+        return getattr(deblock_cuda, f"{name}_plain")
     if name == "luma_pass":
         return _luma_pass
     if name == "luma_pass_h":
@@ -1059,9 +1153,9 @@ def _bound(fam, nbytes, nout):
 def time_calls(timed):
     """Kernel and plain ms summed per family over one picture's calls
     (CUDA events: plain, kernel, kernel, plain per call; the lower of each
-    pair), the call's device ms (torch.profiler: the kernel and the copy of
-    the plane that a deblock wrapper returns) and the bound of the same
-    work (each input read once, each output written once)."""
+    pair), the calls' device ms (torch.profiler: all device work of a
+    call) and the bound of the same work (each input read once, each
+    output written once)."""
     ms = {}
     for name, calls in timed.items():
         if isinstance(calls, IntraTrace):
@@ -1290,6 +1384,9 @@ def main():
             if c[SCAN] > 1 or (intra and c[SCAN] != 1) or c[STEP]:
                 raise AssertionError(f"{what}: {c[SCAN]} scan and {c[STEP]} "
                                      f"fused step launches in a picture")
+            if c[B8] != 1 or c[B9] != 1:
+                raise AssertionError(f"{what}: {c[B8]} B8 and {c[B9]} B9 "
+                                     f"launches in a picture, not 1 / 1")
         for kind, want in (("I", True), ("P", False)):
             sel = [r for r in rows if r[2] == want]
             if not sel:
@@ -1307,14 +1404,21 @@ def main():
         spent = {k: round(v, 2) for k, v in section_ms(pp, idx).items()}
         log(f"sections of {what} picture {idx} (synced ms): "
             f"{json.dumps(spent)} on {smi}")
+    for what, pp, idx in (("P-GOP I", progs, first_i),
+                          ("P-GOP P", progs, first_p)):
+        sms, dms, ops = deblock_section(pp, idx)
+        log(f"deblocking section of {what} picture {idx} alone: synced "
+            f"{sms:.4f} ms (median of 20), device "
+            f"{'not measured' if dms is None else f'{dms:.4f} ms'}, "
+            f"{sum(ops.values()):g} device operations on {smi}")
     for what, pp, idx in (("all-intra", iprogs, 1),
                           ("P-GOP P", progs, first_p)):
-        wall, busy, intra = profile_picture(pp, idx)
+        wall, busy, named = profile_picture(pp, idx)
         if busy > 0:
             log(f"profiled {what} picture {idx}: wall {wall:.2f} ms, device "
                 f"busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}; "
-                f"intra kernels (device ms, launches) {json.dumps(intra)} "
-                f"on {smi}")
+                f"intra and deblocking kernels (device ms, launches) "
+                f"{json.dumps(named)} on {smi}")
         else:
             log(f"profiled {what} picture {idx}: the profiler saw no device "
                 "time; idle share not measured")
@@ -1329,10 +1433,13 @@ def main():
         [("random", rand),
          (f"frame {first_i} (I)", caps[first_i]),
          (f"frame {first_p} (P)", caps[first_p])])
-    # times on the P picture's calls; a wrapper that the P picture did not
+    # times on the P picture's calls; a family that the P picture did not
     # call is timed on the I picture's calls, else on its random cases
-    timed = {**{k: v for k, v in rand.items() if FAMILY[k] not in INTRA},
-             **caps[first_i], **caps[first_p]}
+    captured = {**caps[first_i], **caps[first_p]}
+    on_path = {FAMILY[k] for k in captured}
+    timed = {**{k: v for k, v in rand.items()
+                if FAMILY[k] not in INTRA and FAMILY[k] not in on_path},
+             **captured}
     pic_of = {FAMILY[k]: ("P" if k in caps[first_p] else
                           "I" if k in caps[first_i] else "random")
               for k in timed}
@@ -1347,10 +1454,12 @@ def main():
         f"{b5_i[5]} ms) vs plain {b5_i[1]:.4f} ms, bound "
         f"{_bound(B5, b5_i[2], b5_i[3])[0]:.4f} ms ({b5_i[2]} bytes) on "
         f"{smi}")
-    # B5 and B2 allocate their outputs unfilled: the kernel must be the
-    # only device work of a call
+    # B5, B2, B8 and B9 allocate their outputs unfilled and copy nothing:
+    # the kernel must be the only device work of a call
     for name, mark in (("residual_stripes", "residual_kernel"),
-                       ("paint_pu_idx", "paint_kernel")):
+                       ("paint_pu_idx", "paint_kernel"),
+                       ("deblock_luma", "deblock_kernel"),
+                       ("deblock_chroma", "deblock_kernel")):
         args, kw = caps[first_p][name][0]
         seen = device_kernels(lambda: _call(kernel_of(name), name, args, kw))
         if not seen:
@@ -1381,7 +1490,10 @@ def main():
         f"({ms[B3][4]} launches) vs {B3_FIRST_DESIGN_MS} in its first "
         f"design; B5 {ms[B5][5]} ({ms[B5][4]} launches) vs "
         f"{B5_FIRST_DESIGN_MS}; B2 {ms[B2][5]} ({ms[B2][4]} launch) vs "
-        f"{B2_FIRST_DESIGN_MS}; on {smi}")
+        f"{B2_FIRST_DESIGN_MS}; B8 {ms[B8][5]} ({ms[B8][4]} launch) vs "
+        f"B8_FIRST_DESIGN_MS = {B8_FIRST_DESIGN_MS}; B9 {ms[B9][5]} "
+        f"({ms[B9][4]} launch) vs B9_FIRST_DESIGN_MS = "
+        f"{B9_FIRST_DESIGN_MS}; on {smi}")
 
     # ---- phase 5: small streams ----
     # 104x72, CTB 64 (the corpus stream conf_window_104x72): two intra

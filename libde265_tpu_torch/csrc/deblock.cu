@@ -1,104 +1,207 @@
-// Kernels B8 (luma) and B9 (chroma): HEVC deblocking of one edge
-// orientation (spec 8.7.2.5.3 - 8.7.2.5.7).
+// Kernels B8 (luma) and B9 (chroma): HEVC deblocking of a picture, every
+// vertical edge and then every horizontal edge of a plane class in one
+// launch (spec 8.7.2, 8.7.2.5.3 - 8.7.2.5.7).
 //
 // Replace the TPU kernels libde265_tpu/ops/deblock_pallas.py:luma_pass /
 // luma_pass_h (_luma_kernel, _luma_body) and chroma_pass_stacked /
-// chroma_pass_stacked_h (_chroma_body).  Same arguments: a padded plane
-// with an 8-sample group [p3 p2 p1 p0 | q0 q1 q2 q3] at group offset 8e
-// for every edge e, and per-(segment, edge) parameters.
+// chroma_pass_stacked_h (_chroma_body), which filter one orientation of a
+// zero-padded plane each.  Here one launch takes both orientations of the
+// unpadded plane (both chroma channels in one launch, the channel a grid
+// axis), reads every sample from device memory once and writes it once
+// into a fresh output.  The per-orientation wrappers of the port reach the
+// same kernels with the other orientation switched off.
 //
-// Design: one thread per (4-sample segment, edge) - and per channel for
-// chroma.  The thread reads its parameters once, takes the segment's
-// decisions from rows 0 and 3, and filters the segment's rows in place.
-// The groups of a pass are disjoint, so threads never touch each other's
-// samples and the kernel runs on one copy of the plane.  Both orientations
-// use the natural layout: sample (r, g) of a pass lives at
-// r * stride_r + g * stride_g, r running along the edge, g across it, and
-// the parameters at seg * pstride_s + e * pstride_e.  No transposes.
-// The pass is bound by device memory (each sample of a group is read once
-// and at most six of eight written); the TPU kernel's roll ladders and
-// per-pixel parameter broadcast have no counterpart here.
+// Why a tile is self-contained.  The spec filters all vertical edges of a
+// picture before any horizontal edge.
+//   * A vertical luma edge at x = 8e reads and writes only columns
+//     [8e-4, 8e+4) of the rows of its 4-row segment, and takes its
+//     decisions from rows 0 and 3 of that segment.
+//   * A horizontal luma edge at y = 8e reads and writes only rows
+//     [8e-4, 8e+4) of the columns of its 4-column segment.
+//   * So the output at (r, c) depends only on inputs inside the tile whose
+//     boundaries lie at 8k-4 in both axes: such a boundary never splits a
+//     group [8e-4, 8e+4), and being a multiple of 4 it never splits a
+//     4-sample segment either.
+//   * Chroma edges touch [8e-2, 8e+2); its segments are 2 or 4 samples
+//     (4 // sub).  Any boundary in [8e+2, 8e+6] keeps the groups whole;
+//     the same 8k-4 grid is taken, which keeps 16-byte alignment.
+// The kernel also serves the padded layouts of the per-orientation
+// wrappers, where edge j lies at 8j + x0 (x0 = 4 luma, 2 chroma): the tile
+// grid then follows x0 by the same rule (Tile below).
+//
+// Design: one CTA of NT threads per tile of TH x kTileW samples (clipped to
+// the plane), for each channel:
+//   1. load the tile, a warp of 16-byte loads along a row, each thread's
+//      loads issued before their values go to shared memory;
+//   2. __syncthreads(); vertical edges in shared memory, one thread per
+//      (segment, edge);
+//   3. __syncthreads(); horizontal edges, one thread per (segment, edge);
+//   4. __syncthreads(); store the tile with 16-byte stores.
+// A thread reads its unit's parameters (strided [segment, edge] arrays, as
+// the edge-parameter derivation gives them; edges without a parameter,
+// edge 0 among them, stay as they are).  Shared rows are int32 with one
+// pad word after every 8 columns (an edge group is 8 contiguous words) and
+// a row pitch of 148 words, so the vertical pass's warp (16 edges x 2
+// segments) hits 32 distinct banks and the horizontal pass's at most two
+// a bank.  The work is bound by device memory: one read and one write of
+// every sample, plus the parameters.  TH and NT are template arguments
+// (16 or 32 rows; 64, 128 or 256 threads), chosen per kernel by the
+// wrapper from a sweep (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int kTileW = 128;                      // a warp of int4 per row
+constexpr int kPitch = kTileW + kTileW / 8 + 4;  // shared words per row
+
+// Per-(segment, edge) parameter: element (s, j) at p[s * ss + j * se].
+struct Prm {
+  const int32_t* p;
+  long long ss, se;
+};
+
+// The edges of one orientation.  Edge j (j < n) lies at column (vertical)
+// or row (horizontal) 8j + x0; a segment spans per_seg samples along it.
+// Luma prm: bs, beta, tc, no_p, no_q; chroma: tc of channel 0, tc of
+// channel 1, no_p, no_q.
+struct Edges {
+  Prm prm[5];
+  int n, nseg, x0, per_seg;
+};
+
+// One launch: nch planes (in[c], row pitch in_pitch[c]) of R x C samples;
+// out holds nch contiguous R x C planes.
+struct Args {
+  const int32_t* in[2];
+  long long in_pitch[2];
+  int32_t* out;
+  int R, C, nch;
+  Edges v, h;
+  int bit_depth, tile_h, threads;
+};
+
+// Tile (tx, ty) starts at column tx * kTileW - offx and row ty * TH - offy;
+// an edge lies dv (dh) samples into its 8-sample block of the tile.
+struct Tile {
+  int offx, offy, dv, dh;
+};
+
 __device__ __forceinline__ int clip3(int lo, int hi, int v) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-__global__ void luma_kernel(int32_t* __restrict__ img,
-                            const int32_t* __restrict__ bs,
-                            const int32_t* __restrict__ beta,
-                            const int32_t* __restrict__ tc,
-                            const int32_t* __restrict__ no_p,
-                            const int32_t* __restrict__ no_q, int nseg, int E,
-                            int R, long long stride_r, long long stride_g,
-                            int pstride_s, int pstride_e, int bit_depth) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)nseg * E) return;
-  const int e = (int)(idx % E);
-  const int sg = (int)(idx / E);
-  const int pi = sg * pstride_s + e * pstride_e;
-  const int b = bs[pi];
-  const int bt = beta[pi];
-  const int t = tc[pi];
-  const int r0 = 4 * sg;
-  if (b <= 0 || r0 + 3 >= R) return;
-  const int maxv = (1 << bit_depth) - 1;
-  int32_t* base = img + (long long)r0 * stride_r + (long long)(8 * e) * stride_g;
+__device__ __forceinline__ int sidx(int r, int c) {
+  return r * kPitch + c + (c >> 3);
+}
 
-  int v[4][8];
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int m = 0; m < 8; ++m)
-      v[k][m] = base[k * stride_r + m * stride_g];
+__device__ __forceinline__ int ld(const Prm& p, int s, int j) {
+  return __ldg(p.p + s * p.ss + j * p.se);
+}
 
-  // v[k] = p3 p2 p1 p0 q0 q1 q2 q3 of row k
+// Loads and stores of the tile: TH rows of kTileW / 4 int4 each, NT
+// threads, a warp along a row (NT is a multiple of 32, so a thread keeps
+// its column q = threadIdx.x % 32 and takes rows tid / 32 + k * NT / 32).
+// kChunk loads are issued before their shared stores, so that many are in
+// flight at once.
+template <int TH, int NT>
+__device__ __forceinline__ void load_tile(int32_t* s,
+                                          const int32_t* __restrict__ in,
+                                          long long pitch, int row0, int col0,
+                                          int R, int C) {
+  constexpr int kRows = NT / (kTileW / 4), kIters = TH / kRows;
+  constexpr int kChunk = kIters < 8 ? kIters : 8;
+  const int q = threadIdx.x % (kTileW / 4), r0 = threadIdx.x / (kTileW / 4);
+  const int c = col0 + 4 * q;
+  const bool col_ok = c >= 0 && c < C;
+#pragma unroll
+  for (int k0 = 0; k0 < kIters; k0 += kChunk) {
+    int4 v[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const int r = row0 + r0 + (k0 + k) * kRows;
+      if (col_ok && r >= 0 && r < R)
+        v[k] = __ldg(reinterpret_cast<const int4*>(in + r * pitch + c));
+    }
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const int lr = r0 + (k0 + k) * kRows, r = row0 + lr;
+      if (col_ok && r >= 0 && r < R) {
+        int32_t* d = s + sidx(lr, 4 * q);  // 4q..4q+3 share an 8-block
+        d[0] = v[k].x;
+        d[1] = v[k].y;
+        d[2] = v[k].z;
+        d[3] = v[k].w;
+      }
+    }
+  }
+}
+
+template <int TH, int NT>
+__device__ __forceinline__ void store_tile(const int32_t* s,
+                                           int32_t* __restrict__ out,
+                                           int row0, int col0, int R, int C) {
+  constexpr int kRows = NT / (kTileW / 4), kIters = TH / kRows;
+  const int q = threadIdx.x % (kTileW / 4), r0 = threadIdx.x / (kTileW / 4);
+  const int c = col0 + 4 * q;
+  if (c < 0 || c >= C) return;
+#pragma unroll
+  for (int k = 0; k < kIters; ++k) {
+    const int lr = r0 + k * kRows, r = row0 + lr;
+    if (r >= 0 && r < R) {
+      const int32_t* d = s + sidx(lr, 4 * q);
+      *reinterpret_cast<int4*>(out + (long long)r * C + c) =
+          make_int4(d[0], d[1], d[2], d[3]);
+    }
+  }
+}
+
+// One luma segment: v[k] = p3 p2 p1 p0 q0 q1 q2 q3 of line k, filtered in
+// place; false when the decisions leave it as it is.
+__device__ __forceinline__ bool luma_segment(int v[4][8], int bt, int t,
+                                             bool do_p, bool do_q, int maxv) {
   const int dp0 = abs(v[0][1] - 2 * v[0][2] + v[0][3]);
   const int dp3 = abs(v[3][1] - 2 * v[3][2] + v[3][3]);
   const int dq0 = abs(v[0][6] - 2 * v[0][5] + v[0][4]);
   const int dq3 = abs(v[3][6] - 2 * v[3][5] + v[3][4]);
   const int dpq0 = dp0 + dq0;
   const int dpq3 = dp3 + dq3;
-  if (!(dpq0 + dpq3 < bt)) return;
+  if (!(dpq0 + dpq3 < bt)) return false;
 
   const int tc25 = (5 * t + 1) >> 1;
-  const bool s0 = (2 * dpq0 < (bt >> 2)) &&
-                  (abs(v[0][0] - v[0][3]) + abs(v[0][4] - v[0][7]) < (bt >> 3)) &&
-                  (abs(v[0][3] - v[0][4]) < tc25);
-  const bool s3 = (2 * dpq3 < (bt >> 2)) &&
-                  (abs(v[3][0] - v[3][3]) + abs(v[3][4] - v[3][7]) < (bt >> 3)) &&
-                  (abs(v[3][3] - v[3][4]) < tc25);
+  const bool s0 =
+      (2 * dpq0 < (bt >> 2)) &&
+      (abs(v[0][0] - v[0][3]) + abs(v[0][4] - v[0][7]) < (bt >> 3)) &&
+      (abs(v[0][3] - v[0][4]) < tc25);
+  const bool s3 =
+      (2 * dpq3 < (bt >> 2)) &&
+      (abs(v[3][0] - v[3][3]) + abs(v[3][4] - v[3][7]) < (bt >> 3)) &&
+      (abs(v[3][3] - v[3][4]) < tc25);
   const bool strong = s0 && s3;
   const int side = (bt + (bt >> 1)) >> 3;
   const bool dep = (dp0 + dp3) < side;
   const bool deq = (dq0 + dq3) < side;
-  const bool do_p = no_p[pi] == 0;
-  const bool do_q = no_q[pi] == 0;
   const int tc2 = t >> 1;
 
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int p3 = v[k][0], p2 = v[k][1], p1 = v[k][2], p0 = v[k][3];
     const int q0 = v[k][4], q1 = v[k][5], q2 = v[k][6], q3 = v[k][7];
-    int32_t* row = base + k * stride_r;
     if (strong) {
       if (do_p) {
-        row[3 * stride_g] = p0 + clip3(-2 * t, 2 * t,
+        v[k][3] = p0 + clip3(-2 * t, 2 * t,
             ((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3) - p0);
-        row[2 * stride_g] = p1 + clip3(-2 * t, 2 * t,
+        v[k][2] = p1 + clip3(-2 * t, 2 * t,
             ((p2 + p1 + p0 + q0 + 2) >> 2) - p1);
-        row[1 * stride_g] = p2 + clip3(-2 * t, 2 * t,
+        v[k][1] = p2 + clip3(-2 * t, 2 * t,
             ((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3) - p2);
       }
       if (do_q) {
-        row[4 * stride_g] = q0 + clip3(-2 * t, 2 * t,
+        v[k][4] = q0 + clip3(-2 * t, 2 * t,
             ((q2 + 2 * q1 + 2 * q0 + 2 * p0 + p1 + 4) >> 3) - q0);
-        row[5 * stride_g] = q1 + clip3(-2 * t, 2 * t,
+        v[k][5] = q1 + clip3(-2 * t, 2 * t,
             ((q2 + q1 + q0 + p0 + 2) >> 2) - q1);
-        row[6 * stride_g] = q2 + clip3(-2 * t, 2 * t,
+        v[k][6] = q2 + clip3(-2 * t, 2 * t,
             ((2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3) - q2);
       }
     } else {
@@ -106,90 +209,168 @@ __global__ void luma_kernel(int32_t* __restrict__ img,
       if (abs(delta0) < t * 10) {
         const int delta = clip3(-t, t, delta0);
         if (do_p) {
-          row[3 * stride_g] = clip3(0, maxv, p0 + delta);
+          v[k][3] = clip3(0, maxv, p0 + delta);
           if (dep)
-            row[2 * stride_g] = clip3(0, maxv, p1 + clip3(-tc2, tc2,
+            v[k][2] = clip3(0, maxv, p1 + clip3(-tc2, tc2,
                 ((((p2 + p0 + 1) >> 1) - p1 + delta) >> 1)));
         }
         if (do_q) {
-          row[4 * stride_g] = clip3(0, maxv, q0 - delta);
+          v[k][4] = clip3(0, maxv, q0 - delta);
           if (deq)
-            row[5 * stride_g] = clip3(0, maxv, q1 + clip3(-tc2, tc2,
+            v[k][5] = clip3(0, maxv, q1 + clip3(-tc2, tc2,
                 ((((q2 + q0 + 1) >> 1) - q1 - delta) >> 1)));
         }
       }
     }
   }
+  return true;
 }
 
-__global__ void chroma_kernel(int32_t* __restrict__ imgs,
-                              const int32_t* __restrict__ tcs,
-                              const int32_t* __restrict__ no_p,
-                              const int32_t* __restrict__ no_q, int nseg,
-                              int E, int R, int rows_per_seg,
-                              long long stride_r, long long stride_g,
-                              long long plane_stride, int pstride_s,
-                              int pstride_e, long long tc_plane_stride,
-                              int bit_depth) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long per_plane = (long long)nseg * E;
-  if (idx >= 2 * per_plane) return;
-  const int c = (int)(idx / per_plane);
-  const long long rem = idx % per_plane;
-  const int e = (int)(rem % E);
-  const int sg = (int)(rem / E);
-  const int pi = sg * pstride_s + e * pstride_e;
-  const int t = tcs[c * tc_plane_stride + pi];
-  if (t <= 0) return;
-  const bool do_p = no_p[pi] == 0;
-  const bool do_q = no_q[pi] == 0;
-  const int maxv = (1 << bit_depth) - 1;
-  int32_t* base = imgs + c * plane_stride + (long long)(8 * e) * stride_g;
-  for (int k = 0; k < rows_per_seg; ++k) {
-    const int r = sg * rows_per_seg + k;
-    if (r >= R) break;
-    int32_t* row = base + (long long)r * stride_r;
-    const int p1 = row[0], p0 = row[stride_g];
-    const int q0 = row[2 * stride_g], q1 = row[3 * stride_g];
-    const int delta = clip3(-t, t, ((q0 - p0) * 4 + p1 - q1 + 4) >> 3);
-    if (do_p) row[stride_g] = clip3(0, maxv, p0 + delta);
-    if (do_q) row[2 * stride_g] = clip3(0, maxv, q0 - delta);
+// Unit u of one orientation (a segment and an edge of the tile): its first
+// line a0 and the start x0 of its sample group, tile-local, and its
+// segment g and edge j in the parameter arrays.  For a vertical pass a
+// segment runs down the rows and an edge across the columns; a horizontal
+// pass swaps the two axes.  Vertical units run along the edges of a row
+// (consecutive lanes on consecutive groups), horizontal ones along the
+// segments of an edge row.
+struct Unit {
+  int a0, x0, g, j;
+};
+
+template <int TH, bool kLuma, bool vertical>
+__device__ __forceinline__ Unit unit_of(const Edges& E, int u, int row0,
+                                        int col0, int d) {
+  const int ps = E.per_seg;
+  const int nseg_t = (vertical ? TH : kTileW) / ps;   // segments per tile
+  const int nblk = (vertical ? kTileW : TH) / 8;      // edge blocks
+  const int sl = vertical ? u / nblk : u % nseg_t;
+  const int el = vertical ? u % nblk : u / nseg_t;
+  Unit t;
+  t.a0 = sl * ps;
+  t.x0 = 8 * el + d - (kLuma ? 4 : 2);
+  t.g = ((vertical ? row0 : col0) + t.a0) / ps;               // exact
+  t.j = ((vertical ? col0 : row0) + 8 * el + d - E.x0) / 8;   // exact
+  return t;
+}
+
+// The edges of one orientation over the tile in shared memory.  A thread
+// takes a unit's parameters from device memory, all of them at once (one
+// round trip), then its samples from the tile.
+template <int TH, bool kLuma, bool vertical>
+__device__ void filter_edges(int32_t* s, const Edges& E, int c, int row0,
+                             int col0, int R, int C, int d, int maxv) {
+  const int n_units = ((vertical ? TH : kTileW) / E.per_seg) *
+                      ((vertical ? kTileW : TH) / 8);
+  for (int u = threadIdx.x; u < n_units; u += blockDim.x) {
+    const Unit t = unit_of<TH, kLuma, vertical>(E, u, row0, col0, d);
+    if (t.j < 0 || t.j >= E.n || t.g < 0 || t.g >= E.nseg) continue;
+    const int a0 = t.a0, x0 = t.x0;
+    // lines of the segment inside the plane
+    const int left = (vertical ? R - row0 : C - col0) - a0;
+    if (kLuma) {
+      if (left < 4) continue;
+      const int b = ld(E.prm[0], t.g, t.j), bt = ld(E.prm[1], t.g, t.j);
+      const int tc = ld(E.prm[2], t.g, t.j);
+      const bool do_p = ld(E.prm[3], t.g, t.j) == 0;
+      const bool do_q = ld(E.prm[4], t.g, t.j) == 0;
+      if (b <= 0) continue;
+      int v[4][8];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+          v[k][m] = s[vertical ? sidx(a0 + k, x0 + m) : sidx(x0 + m, a0 + k)];
+      if (!luma_segment(v, bt, tc, do_p, do_q, maxv)) continue;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int m = 1; m < 7; ++m)
+          s[vertical ? sidx(a0 + k, x0 + m) : sidx(x0 + m, a0 + k)] = v[k][m];
+    } else {
+      const int tc = ld(E.prm[c], t.g, t.j);
+      const bool do_p = ld(E.prm[2], t.g, t.j) == 0;
+      const bool do_q = ld(E.prm[3], t.g, t.j) == 0;
+      if (tc <= 0) continue;
+      for (int k = 0; k < E.per_seg && k < left; ++k) {
+        int w[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          w[m] = s[vertical ? sidx(a0 + k, x0 + m) : sidx(x0 + m, a0 + k)];
+        const int delta =
+            clip3(-tc, tc, ((w[2] - w[1]) * 4 + w[0] - w[3] + 4) >> 3);
+        if (do_p)
+          s[vertical ? sidx(a0 + k, x0 + 1) : sidx(x0 + 1, a0 + k)] =
+              clip3(0, maxv, w[1] + delta);
+        if (do_q)
+          s[vertical ? sidx(a0 + k, x0 + 2) : sidx(x0 + 2, a0 + k)] =
+              clip3(0, maxv, w[2] - delta);
+      }
+    }
+  }
+}
+
+template <int TH, int NT, bool kLuma>
+__global__ void __launch_bounds__(NT)
+deblock_kernel(const Args a, const Tile t) {
+  __shared__ int32_t s[TH * kPitch];
+  const int c = blockIdx.z;
+  const int col0 = blockIdx.x * kTileW - t.offx;
+  const int row0 = blockIdx.y * TH - t.offy;
+  const int maxv = (1 << a.bit_depth) - 1;
+  load_tile<TH, NT>(s, a.in[c], a.in_pitch[c], row0, col0, a.R, a.C);
+  __syncthreads();
+  if (a.v.n > 0)
+    filter_edges<TH, kLuma, true>(s, a.v, c, row0, col0, a.R, a.C, t.dv,
+                                  maxv);
+  __syncthreads();
+  if (a.h.n > 0)
+    filter_edges<TH, kLuma, false>(s, a.h, c, row0, col0, a.R, a.C, t.dh,
+                                   maxv);
+  __syncthreads();
+  store_tile<TH, NT>(s, a.out + (long long)c * a.R * a.C, row0, col0, a.R,
+                     a.C);
+}
+
+// Tile boundary residue (mod 8) for edges at 8j + x0: luma at x0 - 4 (the
+// only boundary that keeps [x-4, x+4) whole), chroma at the multiple of 4
+// in [x0 + 2, x0 + 6].
+int boundary(int x0, bool luma) {
+  return luma ? (x0 + 4) & 7 : ((x0 + 5) & ~3) & 7;
+}
+
+template <int TH, int NT, bool kLuma>
+int run(const Args& a, const Tile& t, cudaStream_t st) {
+  const dim3 grid((a.C + t.offx + kTileW - 1) / kTileW,
+                  (a.R + t.offy + TH - 1) / TH, a.nch);
+  deblock_kernel<TH, NT, kLuma><<<grid, NT, 0, st>>>(a, t);
+  return (int)cudaGetLastError();
+}
+
+template <bool kLuma>
+int launch(const Args* a, void* stream) {
+  if (a->R <= 0 || a->C <= 0) return 0;
+  if (a->nch < 1 || a->nch > 2) return (int)cudaErrorInvalidValue;
+  const int rv = boundary(a->v.x0, kLuma), rh = boundary(a->h.x0, kLuma);
+  const Tile t{(8 - rv) & 7, (8 - rh) & 7, (a->v.x0 - rv) & 7,
+               (a->h.x0 - rh) & 7};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (a->tile_h * 1000 + a->threads) {
+    case 16064: return run<16, 64, kLuma>(*a, t, st);
+    case 16128: return run<16, 128, kLuma>(*a, t, st);
+    case 16256: return run<16, 256, kLuma>(*a, t, st);
+    case 32064: return run<32, 64, kLuma>(*a, t, st);
+    case 32128: return run<32, 128, kLuma>(*a, t, st);
+    case 32256: return run<32, 256, kLuma>(*a, t, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-extern "C" int tde_luma_pass(void* img, const void* bs, const void* beta,
-                             const void* tc, const void* no_p,
-                             const void* no_q, int nseg, int E, int R,
-                             long long stride_r, long long stride_g,
-                             int pstride_s, int pstride_e, int bit_depth,
-                             void* stream) {
-  const long long n = (long long)nseg * E;
-  if (n <= 0) return 0;
-  const int threads = 128;
-  luma_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                (cudaStream_t)stream>>>(
-      (int32_t*)img, (const int32_t*)bs, (const int32_t*)beta,
-      (const int32_t*)tc, (const int32_t*)no_p, (const int32_t*)no_q, nseg, E,
-      R, stride_r, stride_g, pstride_s, pstride_e, bit_depth);
-  return (int)cudaGetLastError();
+extern "C" int tde_deblock_luma(const void* args, void* stream) {
+  return launch<true>(static_cast<const Args*>(args), stream);
 }
 
-extern "C" int tde_chroma_pass(void* imgs, const void* tcs, const void* no_p,
-                               const void* no_q, int nseg, int E, int R,
-                               int rows_per_seg, long long stride_r,
-                               long long stride_g, long long plane_stride,
-                               int pstride_s, int pstride_e,
-                               long long tc_plane_stride, int bit_depth,
-                               void* stream) {
-  const long long n = 2LL * nseg * E;
-  if (n <= 0) return 0;
-  const int threads = 128;
-  chroma_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                  (cudaStream_t)stream>>>(
-      (int32_t*)imgs, (const int32_t*)tcs, (const int32_t*)no_p,
-      (const int32_t*)no_q, nseg, E, R, rows_per_seg, stride_r, stride_g,
-      plane_stride, pstride_s, pstride_e, tc_plane_stride, bit_depth);
-  return (int)cudaGetLastError();
+extern "C" int tde_deblock_chroma(const void* args, void* stream) {
+  return launch<false>(static_cast<const Args*>(args), stream);
 }

@@ -3,9 +3,9 @@ cell-grid reshapes, and the deblocking edge-parameter derivation.
 
 Port of the helpers that ``libde265_tpu/fused_decode.py`` imports from
 ``libde265_tpu/tpu_decode.py`` (``_wrap16``, ``_mc_plane``, ``_merge``,
-``_cells_to_plane``, ``_edge_params_jnp``, ``_pad_edge0_cols``,
-``_chroma_qp_map``).  The names are kept so that each function can be held
-against its counterpart.
+``_cells_to_plane``, ``_edge_params_jnp``, ``_chroma_qp_map``; its
+``_pad_edge0_cols`` is ``ops.deblock.pad_edge0``).  The names are kept so
+that each function can be held against its counterpart.
 """
 from __future__ import annotations
 
@@ -152,10 +152,6 @@ def _edge_params_jnp(meta, vertical: bool):
             "no_q": meta["unfilt"][q].to(torch.int32),
             "cqo": [meta["cqo0"][q], meta["cqo1"][q]],
             "tco": toff}
-
-
-def _pad_edge0_cols(a, E):
-    return torch.cat([a.new_zeros((a.shape[0], 1)), a], dim=1)[:, :E]
 
 
 def _chroma_qp_map(qpi, is420):

@@ -53,8 +53,7 @@ from .decoder import (TU_TQ_BYPASS, TU_TRANSFORM_SKIP, TU_USE_DST,
 from . import feed as fdp
 from .feed import AVAIL_WORDS, MAX_REFS, NOREF, WAVE_CAP, FeedPacker
 from .frame_helpers import (_cells_to_plane, _chroma_qp_map,
-                            _edge_params_jnp, _mc_plane, _merge,
-                            _pad_edge0_cols)
+                            _edge_params_jnp, _mc_plane, _merge)
 from .ops import coef_cuda, deblock_cuda, expand, intra_cuda, mc_seg, sao_cuda
 from .ops import deblock as dbk
 from .ops import intra_window as iw
@@ -682,9 +681,10 @@ def _edge_ok_jnp(emap, feed, recs, sidx, cs, Hc, Wc, st):
 
 
 def _deblock_section(planes, feed, recs, cell, skip4, st):
-    """Deblock V then H, luma and chroma, from the per-4x4 metadata; the
-    four passes are the B8/B9 kernel wrappers in natural layout."""
-    H, W, sub_x, sub_y = st["H"], st["W"], st["sub_x"], st["sub_y"]
+    """Deblock V then H, luma and chroma, from the per-4x4 metadata: one
+    B8 call for luma and one B9 call for both chroma planes, each on the
+    unpadded planes, returning contiguous planes."""
+    sub_x, sub_y = st["sub_x"], st["sub_y"]
     bd, bdc = st["bd"], st["bdc"]
     has_chroma = not st["mono"]
     is420 = sub_x == 2 and sub_y == 2
@@ -733,70 +733,30 @@ def _deblock_section(planes, feed, recs, cell, skip4, st):
         tc = tc_table[(qpc + 2 + tco[None]).clamp(0, 53).long()] << (bdc - 8)
         return torch.where(bs[None] == 2, tc, 0)
 
-    y = planes[0]
-    cb = planes[1] if has_chroma else None
-    cr = planes[2] if has_chroma else None
-    Ev, Eh = W // 8, H // 8
-    Hc, Wc = H // sub_y, W // sub_x
-
-    # ---- vertical edges ----
-    pv = _edge_params_jnp(meta, vertical=True)
-    prm = {k: _pad_edge0_cols(v, Ev).contiguous() for k, v in pv.items()
-           if k not in ("cqo", "tco")}
-    pad = torch.zeros((H, W + 8), dtype=torch.int32, device=dev)
-    pad[:, 4:4 + W] = y
-    y = deblock_cuda.luma_pass(pad, prm["bs"], prm["beta"], prm["tc"],
-                               prm["no_p"], prm["no_q"], bit_depth=bd)[
-        :, 4:4 + W]
-    if has_chroma:
-        # every chroma edge, the last one too where Wc is not a multiple of
-        # 8 (104x72 4:2:0: Wc = 52, edge at x = 48); the JAX package keeps
-        # Wc // 8 (libde265_tpu/fused_decode.py:912), so on such pictures
-        # the port is held against the oracle, not against JAX
-        Ec = (Wc + 7) // 8
-        segs = slice(0, Ev, sub_x)
-        cqo = [_pad_edge0_cols(c, Ev)[:, segs] for c in pv["cqo"]]
-        tco = _pad_edge0_cols(pv["tco"], Ev)[:, segs]
-        tc_c = chroma_tc(prm["qp_l"][:, segs], cqo, tco, prm["bs"][:, segs])
-        padc = torch.zeros((2, Hc, Wc + 8), dtype=torch.int32, device=dev)
-        padc[:, :, 2:2 + Wc] = torch.stack([cb, cr])
-        outc = deblock_cuda.chroma_pass_stacked(
-            padc, tc_c[:, :, :Ec].contiguous(),
-            prm["no_p"][:, segs][:, :Ec].contiguous(),
-            prm["no_q"][:, segs][:, :Ec].contiguous(), bit_depth=bdc,
-            rows_per_seg=4 // sub_y)
-        cb, cr = outc[0, :, 2:2 + Wc], outc[1, :, 2:2 + Wc]
-
-    # ---- horizontal edges (natural [Eh, W/4] layout: edge e at y = 8e) ----
-    ph = _edge_params_jnp(meta, vertical=False)
-
-    def pad0_rows(a):
-        return torch.cat([a.new_zeros((1, a.shape[1])), a], 0)[:Eh]
-
-    prm = {k: pad0_rows(v).contiguous() for k, v in ph.items()
-           if k not in ("cqo", "tco")}
-    pad = torch.zeros((H + 8, W), dtype=torch.int32, device=dev)
-    pad[4:4 + H, :] = y
-    y = deblock_cuda.luma_pass_h(pad, prm["bs"], prm["beta"], prm["tc"],
-                                 prm["no_p"], prm["no_q"], bit_depth=bd)[
-        4:4 + H, :]
-    if has_chroma:
-        # (Hc + 7) // 8 edges, as for the vertical ones; the JAX package
-        # keeps Hc // 8 (libde265_tpu/fused_decode.py:964)
-        Ech = (Hc + 7) // 8
-        segs = slice(0, Eh, sub_y)
-        cqo = [pad0_rows(c)[segs] for c in ph["cqo"]]
-        tco = pad0_rows(ph["tco"])[segs]
-        tc_c = chroma_tc(prm["qp_l"][segs], cqo, tco, prm["bs"][segs])
-        padc = torch.zeros((2, Hc + 8, Wc), dtype=torch.int32, device=dev)
-        padc[:, 2:2 + Hc, :] = torch.stack([cb, cr])
-        outc = deblock_cuda.chroma_pass_stacked_h(
-            padc, tc_c[:, :Ech, :].contiguous(),
-            prm["no_p"][segs][:Ech].contiguous(),
-            prm["no_q"][segs][:Ech].contiguous(), bit_depth=bdc,
-            cols_per_seg=4 // sub_x)
-        cb, cr = outc[0, 2:2 + Hc, :], outc[1, 2:2 + Hc, :]
-    return [y, cb, cr] if has_chroma else [y]
+    keys = ("bs", "beta", "tc", "no_p", "no_q")
+    pv = _edge_params_jnp(meta, vertical=True)     # [H/4, W/8 - 1]
+    ph = _edge_params_jnp(meta, vertical=False)    # [H/8 - 1, W/4]
+    y = deblock_cuda.deblock_luma(planes[0], [pv[k] for k in keys],
+                                  [ph[k] for k in keys], bit_depth=bd)
+    if not has_chroma:
+        return [y]
+    # chroma edge k lies on luma edge k * sub (parameter column k * sub - 1);
+    # the kernel counts (Wc + 7) // 8 and (Hc + 7) // 8 edges, the last
+    # one too where Wc or Hc is not a multiple of 8 (104x72 4:2:0: Wc = 52,
+    # edge at x = 48); the JAX package keeps Wc // 8 and Hc // 8
+    # (libde265_tpu/fused_decode.py:912, :964), so on such pictures the
+    # port is held against the oracle, not against JAX
+    sv, sh = (slice(None), slice(sub_x - 1, None, sub_x)), \
+        slice(sub_y - 1, None, sub_y)
+    tc_v = chroma_tc(pv["qp_l"][sv], [c[sv] for c in pv["cqo"]],
+                     pv["tco"][sv], pv["bs"][sv])
+    tc_h = chroma_tc(ph["qp_l"][sh], [c[sh] for c in ph["cqo"]],
+                     ph["tco"][sh], ph["bs"][sh])
+    cbcr = deblock_cuda.deblock_chroma(
+        planes[1], planes[2], (tc_v, pv["no_p"][sv], pv["no_q"][sv]),
+        (tc_h, ph["no_p"][sh], ph["no_q"][sh]), bit_depth=bdc, sub_x=sub_x,
+        sub_y=sub_y)
+    return [y, cbcr[0], cbcr[1]]
 
 
 def _sao_section(planes, feed, recs, skip4, st):

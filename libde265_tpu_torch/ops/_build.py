@@ -29,10 +29,8 @@ _P, _I, _L = ct.c_void_p, ct.c_int, ct.c_longlong
 # entry point -> argument types (pointers and the stream as void*)
 SIGNATURES = {
     "tde_densify": [_P, _L, _P, _P, _I, _I, _P],
-    "tde_luma_pass": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I,
-                      _I, _P],
-    "tde_chroma_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I,
-                        _L, _I, _P],
+    "tde_deblock_luma": [_P, _P],      # (const Args*, stream)
+    "tde_deblock_chroma": [_P, _P],
     "tde_sao_plane": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tde_border_gather": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
     "tde_window_scatter": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P],

@@ -26,6 +26,12 @@ CHROMA_QP_TAB = np.array([29, 30, 31, 32, 33, 33, 34, 34, 35, 35, 36, 36, 37,
                           37], dtype=np.int32)
 
 
+def pad_edge0(a, E):
+    """Per-segment parameters [S, E'] of edges 1.. as [S, E] of edges 0..E-1:
+    a zero column (edge 0, the picture's border: off) in front, cut to E."""
+    return torch.cat([a.new_zeros((a.shape[0], 1)), a], dim=1)[:, :E]
+
+
 def _luma_pass(img, bs, beta, tc, no_p, no_q, bit_depth: int = 8):
     """One vertical deblocking pass over a [H, Wp] padded int32 plane.
 

@@ -66,10 +66,18 @@ def plan_segment_indices(pus: np.ndarray, list_idx: int, H: int):
 
     Returns per-band counts [n_bands], sidx [n_bands, ceil(K/2)] with two
     16-bit PU indices per int32 word (band-major, PU emission order), and
-    K, the most segments of a band."""
+    K, the most segments of a band.  Raises ValueError when a PU of the
+    list has an index that does not fit in 16 bits (B3 and B2 read it from
+    the word; B2 paints (ordinal << 16) | index), rather than let it wrap
+    to another PU; the JAX package's planner does not check."""
     n_bands = (H + 3) // 4
     sel = np.nonzero((pus["pred_flags"] & (1 << list_idx)) != 0)[0] \
         if len(pus) else np.zeros(0, np.int64)
+    if len(sel) and sel[-1] > 0xFFFF:
+        raise ValueError(
+            f"plan_segment_indices: {len(pus)} PUs in the picture; PU "
+            f"{int(sel[-1])} of list {list_idx} does not fit the segment "
+            f"words' 16-bit index (at most 65536 PUs)")
     if not len(sel):
         return (np.zeros(n_bands, np.int32),
                 np.zeros((n_bands, 1), np.int32), 1)

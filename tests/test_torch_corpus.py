@@ -10,9 +10,14 @@ reads the checkout's own copy (OWN_CORPUS), the packer's test the copy in
 /tmp that other checkouts share.  The "nocrash"
 mutants are left out: their names depend on which decoders built them.
 The two streams with cross-component prediction raise the port's
-NotImplementedError (ROADMAP A, item 1).  The two largest streams,
+NotImplementedError (ROADMAP A, item 4).  The two largest streams,
 level_edge_64x8192 and level_edge_8192x64 (about 30 s of the file's 110 s
-on a CPU), are left out to keep the file near 80 s.
+on a CPU), are left out here to keep the file near 80 s.
+
+On a CUDA card (the `gpu` test) FusedDecoder() decodes every exact stream,
+both level_edge ones included, with the hand-written kernels: 4:2:2 and
+4:4:4 chroma, 4:0:0, odd plane sizes, slices and tiles that switch
+filtering off across their boundaries, 8192-wide and 8192-high pictures.
 
 Beyond the JAX package: conf_window_104x72 has a 52x36 chroma plane, whose
 last deblocking edges (x = 48, y = 32) the JAX package's picture program
@@ -27,7 +32,7 @@ import pytest
 
 from libde265_tpu_torch import FusedDecoder
 
-from _torch_common import CORPUS, OWN_CORPUS, programs
+from _torch_common import CORPUS, OWN_CORPUS, cuda, programs  # noqa: F401
 from test_native_pack import STREAMS as PACK_STREAMS
 
 CCP = {"chroma444_ccp", "rext_price_ccp_444"}
@@ -50,12 +55,12 @@ def test_corpus_ready_at_collection():
     assert "conf_window_104x72" in EXACT and CCP <= set(EXACT)
 
 
-@pytest.mark.parametrize("name", EXACT)
-def test_corpus_stream_bit_exact(native_build, name):
+def _decode_exact(fd, name):
+    """Every frame of the corpus stream through fd (production
+    formulation), every plane equal to the oracle's; the CCP streams
+    raise."""
     _, progs = programs((OWN_CORPUS / f"{name}.h265").read_bytes())
     assert progs
-    fd = FusedDecoder(device="cpu")
-    fd.use_pallas_mc = True
     fd.plan_stream(progs)
     if name in CCP:
         with pytest.raises(NotImplementedError, match="A2"):
@@ -67,6 +72,21 @@ def test_corpus_stream_bit_exact(native_build, name):
         want = [q for q in p.planes if q is not None]     # 4:0:0: luma only
         assert len(planes) == len(want)
         for c, (got, w) in enumerate(zip(planes, want)):
-            np.testing.assert_array_equal(got.numpy(), w,
+            np.testing.assert_array_equal(got.cpu().numpy(), w,
                                           err_msg=f"{name} frame {i} "
                                                   f"plane {c}")
+
+
+@pytest.mark.parametrize("name", EXACT)
+def test_corpus_stream_bit_exact(native_build, name):
+    fd = FusedDecoder(device="cpu")
+    fd.use_pallas_mc = True
+    _decode_exact(fd, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", EXACT + sorted(LARGEST))
+def test_corpus_stream_bit_exact_on_card(cuda, native_build, name):  # noqa: F811
+    fd = FusedDecoder()
+    assert fd.device.type == "cuda" and fd.use_pallas_mc
+    _decode_exact(fd, name)

@@ -1,7 +1,10 @@
-"""Deblocking passes (kernels B8/B9's plain versions) vs the JAX package's
-XLA passes and its Pallas kernels in interpret mode, at the shapes of
-tests/test_deblock_pallas.py.  On a CUDA card each kernel is held against
-its plain version."""
+"""Deblocking (kernels B8/B9's plain versions) vs the JAX package's XLA
+passes and its Pallas kernels in interpret mode: the per-orientation
+passes at the shapes of tests/test_deblock_pallas.py, and deblock_luma /
+deblock_chroma (every vertical, then every horizontal edge of a picture's
+planes) against the JAX passes composed as the picture program composes
+them.  Tolerance 0 (integer math).  On a CUDA card each kernel is held
+against its plain version."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -166,3 +169,217 @@ def test_chroma_kernel_matches_plain(cuda, H, W, per_seg, bd,  # noqa: F811
              **kw)
     want = fn(t32(imgs), *map(t32, prm), bit_depth=bd, **kw)
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# both orientations of a picture's planes (deblock_luma, deblock_chroma)
+# ---------------------------------------------------------------------------
+
+def _smooth(rng, shape, bd):
+    """Blocky smooth content: a gradient, an offset per 4x4 block and a
+    little noise, so that most edges pass the filter decisions (uniform
+    noise fails them)."""
+    *lead, h, w = shape
+    yy, xx = np.mgrid[0:h, 0:w]
+    off = rng.integers(-6, 7, (*lead, (h + 3) // 4, (w + 3) // 4))
+    off = off.repeat(4, -2).repeat(4, -1)[..., :h, :w]
+    v = ((xx + 2 * yy) // 3 % 160 + off + rng.integers(0, 3, (*lead, h, w)) +
+         40) << (bd - 8)
+    return np.clip(v, 0, (1 << bd) - 1)
+
+
+def _picture_case(H, W, sub_x, sub_y, bd):
+    """Planes and edge parameters of an H x W picture in the layouts of
+    _edge_params_jnp (edge 0 dropped): luma [H/4, W/8-1] and [H/8-1, W/4],
+    chroma [., S, (Wc+7)//8 - 1] and [., (Hc+7)//8 - 1, S']."""
+    rng = np.random.default_rng(H * 31 + W + 7 * sub_x + 3 * sub_y + bd)
+    Hc, Wc = H // sub_y, W // sub_x
+    y = _smooth(rng, (H, W), bd)
+    cbcr = _smooth(rng, (2, Hc, Wc), bd)
+    pv = _luma_params(rng, H // 4, W // 8 - 1, bd)
+    ph = _luma_params(rng, H // 8 - 1, W // 4, bd)
+    cv = _chroma_params(rng, H // 4, (Wc + 7) // 8 - 1, bd)
+    ch = _chroma_params(rng, (Hc + 7) // 8 - 1, W // 4, bd)
+    return y, cbcr, pv, ph, cv, ch
+
+
+def _pad0(a, E):
+    return np.concatenate([np.zeros((a.shape[0], 1), a.dtype), a], 1)[:, :E]
+
+
+def _jax_luma(y, pv, ph, bd, pallas):
+    """The JAX passes composed: pad 4 columns, vertical pass, unpad, pad 4
+    rows, horizontal pass (XLA: the vertical pass on the transpose), unpad."""
+    H, W = y.shape
+    pad = np.zeros((H, W + 8), np.int32)
+    pad[:, 4:4 + W] = y
+    v = [_j(_pad0(a, W // 8)) for a in pv]
+    out = (jdbp.luma_pass(_j(pad), *v, bit_depth=bd, interpret=True)
+           if pallas else jdbk._luma_pass(_j(pad), *v, bit_depth=bd))
+    pad = np.zeros((H + 8, W), np.int32)
+    pad[4:4 + H] = np.asarray(out)[:, 4:4 + W]
+    h = [_pad0(a.T, H // 8) for a in ph]                 # [W/4, H/8]
+    out = (jdbp.luma_pass_h(_j(pad), *(_j(a.T) for a in h), bit_depth=bd,
+                            interpret=True) if pallas else
+           jdbk._luma_pass(_j(pad.T), *map(_j, h), bit_depth=bd).T)
+    return np.asarray(out)[4:4 + H]
+
+
+def _jax_chroma(cbcr, cv, ch, bd, sub_x, sub_y, pallas):
+    """The same for both chroma planes: 2-sample pads, 4 // sub_y rows
+    (4 // sub_x columns) a segment, (Wc+7)//8 and (Hc+7)//8 edges."""
+    _, Hc, Wc = cbcr.shape
+    ev, eh = (Wc + 7) // 8, (Hc + 7) // 8
+    pad = np.zeros((2, Hc, Wc + 8), np.int32)
+    pad[:, :, 2:2 + Wc] = cbcr
+    tcs = np.stack([_pad0(t, ev) for t in cv[0]])
+    no_p, no_q = _pad0(cv[1], ev), _pad0(cv[2], ev)
+    if pallas:
+        out = np.asarray(jdbp.chroma_pass_stacked(
+            _j(pad), _j(tcs), _j(no_p), _j(no_q), bit_depth=bd,
+            rows_per_seg=4 // sub_y, interpret=True))
+    else:
+        out = np.stack([np.asarray(jdbk._chroma_pass(
+            _j(pad[c]), _j(tcs[c]), _j(no_p), _j(no_q), bit_depth=bd,
+            rows_per_seg=4 // sub_y)) for c in range(2)])
+    pad = np.zeros((2, Hc + 8, Wc), np.int32)
+    pad[:, 2:2 + Hc] = out[:, :, 2:2 + Wc]
+    tcs = np.stack([_pad0(t.T, eh).T for t in ch[0]])    # [2, eh, S']
+    no_p, no_q = _pad0(ch[1].T, eh).T, _pad0(ch[2].T, eh).T
+    if pallas:
+        out = np.asarray(jdbp.chroma_pass_stacked_h(
+            _j(pad), _j(tcs), _j(no_p), _j(no_q), bit_depth=bd,
+            cols_per_seg=4 // sub_x, interpret=True))
+    else:
+        out = np.stack([np.asarray(jdbk._chroma_pass(
+            _j(pad[c].T), _j(tcs[c].T), _j(no_p.T), _j(no_q.T),
+            bit_depth=bd, rows_per_seg=4 // sub_x)).T for c in range(2)])
+    return out[:, 2:2 + Hc]
+
+
+# (H, W, sub_x, sub_y, bit depth): the luma shapes above, 104x72 4:2:0
+# (52x36 chroma, whose last edges lie 4 samples from the end), 4:2:2 and
+# 4:4:4, at bit depths 8 and 10
+PICTURES = [(64, 128, 2, 2, 8), (72, 88, 2, 2, 8), (64, 128, 2, 2, 10),
+            (72, 104, 2, 2, 8), (72, 104, 2, 2, 10), (40, 80, 2, 1, 8),
+            (40, 80, 2, 1, 10), (48, 64, 1, 1, 8), (48, 64, 1, 1, 10)]
+FORMAT = {(2, 2): "420", (2, 1): "422", (1, 1): "444"}
+PICTURE_IDS = [f"{w}x{h}-{FORMAT[sx, sy]}-bd{bd}"
+               for h, w, sx, sy, bd in PICTURES]
+LUMA_PICTURES = sorted({(h, w, bd) for h, w, _, _, bd in PICTURES})
+
+
+@pytest.mark.parametrize("H,W,bd", LUMA_PICTURES)
+def test_deblock_luma_matches_jax(H, W, bd):
+    y, _, pv, ph, _, _ = _picture_case(H, W, 2, 2, bd)
+    got = deblock_cuda.deblock_luma(t32(y), [t32(a) for a in pv],
+                                    [t32(a) for a in ph], bit_depth=bd)
+    assert got.is_contiguous() and (got.numpy() != y).sum() > H * W // 20
+    for pallas in (False, True):
+        np.testing.assert_array_equal(got.numpy(),
+                                      _jax_luma(y, pv, ph, bd, pallas))
+
+
+@pytest.mark.parametrize("H,W,sub_x,sub_y,bd", PICTURES, ids=PICTURE_IDS)
+def test_deblock_chroma_matches_jax(H, W, sub_x, sub_y, bd):
+    _, cbcr, _, _, cv, ch = _picture_case(H, W, sub_x, sub_y, bd)
+    got = deblock_cuda.deblock_chroma(
+        t32(cbcr[0]), t32(cbcr[1]), [t32(a) for a in cv],
+        [t32(a) for a in ch], bit_depth=bd, sub_x=sub_x, sub_y=sub_y)
+    assert got.is_contiguous() and (got.numpy() != cbcr).sum() > \
+        cbcr.size // 50
+    for pallas in (False, True):
+        np.testing.assert_array_equal(
+            got.numpy(), _jax_chroma(cbcr, cv, ch, bd, sub_x, sub_y, pallas))
+
+
+def _strided(a, dev, pitch_pad=0):
+    """a on dev, as a view with a wider row pitch (pitch_pad more columns,
+    16-byte aligned) or with every other column of a [., 2b] tensor."""
+    a = np.asarray(a)
+    if pitch_pad:
+        big = torch.full((a.shape[0] + 1, a.shape[1] + pitch_pad), -9,
+                         dtype=torch.int32, device=dev)
+        big[1:, pitch_pad:] = t32(a, dev)
+        return big[1:, pitch_pad:]
+    big = torch.full((*a.shape[:-1], 2 * a.shape[-1]), -9, dtype=torch.int32,
+                     device=dev)
+    big[..., ::2] = t32(a, dev)
+    return big[..., ::2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [False, True], ids=["dense", "views"])
+@pytest.mark.parametrize(
+    "H,W,sub_x,sub_y,bd",
+    PICTURES + [(64, 8192, 2, 2, 8), (8192, 64, 2, 2, 8),
+                (1088, 1920, 2, 2, 8)],
+    ids=PICTURE_IDS + ["8192x64-420-bd8", "64x8192-420-bd8",
+                       "1920x1088-420-bd8"])
+def test_deblock_kernels_match_plain(cuda, H, W, sub_x, sub_y, bd,  # noqa: F811
+                                     strided):
+    """One launch each, equal to the plain version; tiles straddle the
+    ragged right and bottom edges of every plane here (128-column tiles
+    of 16 or 32 rows from column and row -4).  "views": planes with a wider
+    row pitch and parameters with a column stride of 2, as the picture
+    program hands them over."""
+    y, cbcr, pv, ph, cv, ch = _picture_case(H, W, sub_x, sub_y, bd)
+
+    def dev(a, pitch=0):
+        return _strided(a, cuda, pitch) if strided else t32(a, cuda)
+
+    n0 = deblock_cuda.luma_launches
+    got = deblock_cuda.deblock_luma(dev(y, 132), [dev(a) for a in pv],
+                                    [dev(a) for a in ph], bit_depth=bd)
+    want = deblock_cuda.deblock_luma(t32(y), [t32(a) for a in pv],
+                                     [t32(a) for a in ph], bit_depth=bd)
+    assert deblock_cuda.luma_launches == n0 + 1
+    assert torch.equal(got.cpu(), want)
+    n0 = deblock_cuda.chroma_launches
+    got = deblock_cuda.deblock_chroma(
+        dev(cbcr[0], 8), dev(cbcr[1], 4), [dev(a) for a in cv],
+        [dev(a) for a in ch], bit_depth=bd, sub_x=sub_x, sub_y=sub_y)
+    want = deblock_cuda.deblock_chroma(
+        t32(cbcr[0]), t32(cbcr[1]), [t32(a) for a in cv],
+        [t32(a) for a in ch], bit_depth=bd, sub_x=sub_x, sub_y=sub_y)
+    assert deblock_cuda.chroma_launches == n0 + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_h,threads", [(16, 64), (16, 128), (16, 256),
+                                            (32, 64), (32, 128),
+                                            (32, 256)])
+def test_deblock_kernel_tile_shapes(cuda, tile_h, threads):  # noqa: F811
+    """Every tile height and CTA size the kernels take (the sweep's
+    configurations) gives the plain version's planes."""
+    y, cbcr, pv, ph, cv, ch = _picture_case(72, 104, 2, 2, 10)
+    saved = dict(deblock_cuda.TILE)
+    deblock_cuda.TILE.update(dict.fromkeys(saved, (tile_h, threads)))
+    try:
+        got_y = deblock_cuda.deblock_luma(
+            t32(y, cuda), [t32(a, cuda) for a in pv],
+            [t32(a, cuda) for a in ph], bit_depth=10)
+        got_c = deblock_cuda.deblock_chroma(
+            t32(cbcr[0], cuda), t32(cbcr[1], cuda),
+            [t32(a, cuda) for a in cv], [t32(a, cuda) for a in ch],
+            bit_depth=10)
+    finally:
+        deblock_cuda.TILE.update(saved)
+    assert torch.equal(got_y.cpu(), deblock_cuda.deblock_luma(
+        t32(y), [t32(a) for a in pv], [t32(a) for a in ph], bit_depth=10))
+    assert torch.equal(got_c.cpu(), deblock_cuda.deblock_chroma(
+        t32(cbcr[0]), t32(cbcr[1]), [t32(a) for a in cv],
+        [t32(a) for a in ch], bit_depth=10))
+
+
+@pytest.mark.gpu
+def test_deblock_rejects_unaligned_planes(cuda):  # noqa: F811
+    """The kernels load rows with 16-byte loads: a plane whose rows are not
+    16-byte aligned raises ValueError (there is no fallback)."""
+    y, _, pv, ph, _, _ = _picture_case(64, 128, 2, 2, 8)
+    big = t32(np.zeros((64, 136)), cuda)
+    big[:, 1:129] = t32(y, cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        deblock_cuda.deblock_luma(big[:, 1:129], [t32(a, cuda) for a in pv],
+                                  [t32(a, cuda) for a in ph])

@@ -16,7 +16,8 @@ from libde265_tpu.ops import mc_pallas as mp
 from libde265_tpu_torch import fused_decode as tfd
 from libde265_tpu_torch.ops import expand, mc_seg
 
-from _torch_common import cuda, gop_bytes, programs, t32  # noqa: F401
+from _torch_common import (OWN_CORPUS, cuda, gop_bytes,  # noqa: F401
+                           programs, t32)
 
 
 def random_pus(rng, H, W, L=1, max_mv=40, n_slots=3):
@@ -341,6 +342,30 @@ def test_host_helpers_match_jax(native_build, stream):
                     np.testing.assert_array_equal(a, c)
                 n += len(got[0])
     assert n > 0
+
+
+@pytest.mark.parametrize("n", [65536, 65537])
+def test_plan_segment_indices_guards_the_16_bit_pu_index(native_build, n):
+    """The segment words carry 16-bit PU indices (ROADMAP C4).  n synthetic
+    8x4 PUs with the PU dtype of a corpus program, 512 in each band of a
+    4096-wide picture: 65,536 plan, and the last one's index, 65535, reads
+    back from its word; one more raises ValueError naming the count,
+    where the JAX package's planner would wrap it to PU 0."""
+    _, progs = programs((OWN_CORPUS / "gop_p.h265").read_bytes())
+    dtype = next(p.pus.dtype for p in progs if len(p.pus))
+    k = np.arange(n)
+    pus = np.zeros(n, dtype)
+    pus["x"], pus["y"] = (k % 512) * 8, (k // 512) * 4
+    pus["w"], pus["h"], pus["pred_flags"] = 8, 4, 1
+    H = 4 * (n // 512 + 1)
+    if n > 1 << 16:
+        with pytest.raises(ValueError, match=f"{n} PUs"):
+            mc_seg.plan_segment_indices(pus, 0, H)
+        return
+    counts, sw, K = mc_seg.plan_segment_indices(pus, 0, H)
+    assert K == 512 and counts.sum() == n
+    band, slot = (n - 1) // 512, (n - 1) % 512
+    assert (int(sw[band, slot >> 1]) >> (16 * (slot & 1))) & 0xFFFF == n - 1
 
 
 @pytest.mark.parametrize("fill", [0.05, 0.5, 1.0])
