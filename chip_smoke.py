@@ -17,21 +17,25 @@ Phases (any failure raises and the script exits non-zero):
        b. a 1920x1088 all-intra GOP (4 frames, intra period 1), decoded
           with PipelinedDecoder(): the intra scan, one persistent kernel
           launch per picture with intra blocks, no fused-step launch;
-     then synced per-picture milliseconds and launches (I and P; B8 and
-     B9 once each in every picture), the synced feed pack, intra scan
-     and deblocking of single pictures, the deblocking section of the
-     first I and P picture alone (synced ms, device ms and device
-     operations), and one all-intra picture under torch.profiler (device
-     busy and idle share, the intra kernels by name);
+     then synced per-picture milliseconds and launches (I and P; B4, B8
+     and B9 once each in every picture), the synced feed pack, intra scan
+     and deblocking of single pictures, the deblocking and the residual
+     sections of the first I and P picture alone (synced ms, device ms
+     and device operations), and one all-intra picture under
+     torch.profiler (device busy and idle share, the intra kernels by
+     name);
   4. kernels vs plain: each kernel against its plain PyTorch version on
      the card, on seeded random inputs at the 1080p shapes and on the
      inputs captured from the first I and P picture (the intra kernels on
      the first I picture's whole scan); exact equality; CUDA-event times of
      both, each kernel's device time (torch.profiler) and bound; B5 timed
-     on the I picture's calls as well (bins with no segment), and B5's,
-     B2's, B8's and B9's calls checked to run no device work besides their
-     kernel.  B8 and B9 (both edge orientations of a plane in one launch)
-     are also held through the per-orientation wrappers.  The
+     on the I picture's calls as well (bins with no segment), and B4's,
+     B5's, B2's, B8's and B9's calls checked to run no device work besides
+     their kernel; B4 (every size bin of a picture in one call) also on
+     random bins of the P picture's sizes; B1's library yardstick, the
+     one indexing call of its plain version, timed.  B8 and B9 (both
+     edge orientations of a plane in one launch) are also held through
+     the per-orientation wrappers.  The
      persistent scan also on synthetic pictures whose steps share all four
      luma sizes.  The separate B6 and B7 kernels and the fused step (the
      scan's body, one launch per step and size bin) are held here only:
@@ -66,7 +70,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 INT_OPS_PER_S = 67e12       # H100 SXM peak outside the tensor cores
 
 B1, B2, B3 = "B1 expand_blocks", "B2 paint_pu_idx", "B3 mc_stripes"
-B4, B5 = "B4 densify_bin", "B5 residual_stripes"
+B4, B5 = "B4 densify_bins", "B5 residual_stripes"
 B6, B7 = "B6 border_gather", "B7 window_scatter"
 B8, B9 = "B8 deblock_luma (V+H)", "B9 deblock_chroma (V+H)"
 B10 = "B10 sao_plane_fused"
@@ -126,6 +130,7 @@ INTRA = (SCAN, STEP, B6, B7)
 WRAPPERS = {("expand", "expand_blocks"): B1,
             ("mc_seg", "paint_pu_idx"): B2,
             ("mc_seg", "mc_stripes"): B3,
+            ("coef_cuda", "densify_bins"): B4,
             ("coef_cuda", "densify_bin"): B4,
             ("mc_seg", "residual_stripes"): B5,
             ("deblock_cuda", "deblock_luma"): B8,
@@ -149,14 +154,16 @@ INPLACE = ("window_scatter", "intra_step")   # update their first argument
 # each walking every segment of its band), B8 and B9 per 1080p P picture in
 # their first design (one launch per edge orientation, one thread per
 # segment and edge, each on a clone of a zero-padded copy of the plane),
-# and the fused intra step per 1080p I picture when it ran the main path
-# (1584 launches)
+# the fused intra step per 1080p I picture when it ran the main path
+# (1584 launches), and B4 per 1080p P picture in its first design (one
+# launch per size bin, a warp per TU, over a zero-filled output)
 B3_FIRST_DESIGN_MS = 0.2100
 B5_FIRST_DESIGN_MS = 0.0737
 B2_FIRST_DESIGN_MS = 0.0191
 B8_FIRST_DESIGN_MS = 0.0280
 B9_FIRST_DESIGN_MS = 0.0156
 FUSED_STEP_MAIN_PATH_MS = 7.9225
+B4_FIRST_DESIGN_MS = 0.0132
 
 
 def log(*a):
@@ -495,14 +502,14 @@ def section_ms(progs, idx):
     return spent
 
 
-def deblock_section(progs, idx, reps=20):
-    """The deblocking section of one picture alone (the pictures before it
-    decoded first): its arguments captured while the picture decodes, then
-    the section run again on them: synced ms (median of reps), and device
-    ms and device operations by name per run (torch.profiler over five
-    runs, after a first profile that only warms the profiler up: kernels,
-    fills and copies; the ms is None where the profiler sees no device
-    time)."""
+def section_alone(progs, idx, name, run=None, reps=20):
+    """The picture program's section fused_decode.<name> of one picture
+    alone (the pictures before it decoded first): its arguments captured
+    while the picture decodes, then run(*args) again on them (run defaults
+    to the section itself): synced ms (median of reps), and device ms and
+    device operations by name per run (torch.profiler over five runs,
+    after a first profile that only warms the profiler up: kernels, fills
+    and copies; the ms is None where the profiler sees no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     import libde265_tpu_torch as lt
@@ -511,30 +518,31 @@ def deblock_section(progs, idx, reps=20):
     fd.plan_stream(progs)
     for p in progs[:idx]:
         fd.decode(p)
-    section, seen = fdm._deblock_section, []
+    section, seen = getattr(fdm, name), []
 
     def record(*a, **k):
         seen.append((a, k))
         return section(*a, **k)
 
-    fdm._deblock_section = record
+    setattr(fdm, name, record)
     try:
         fd.decode(progs[idx])
     finally:
-        fdm._deblock_section = section
+        setattr(fdm, name, section)
     a, k = seen[0]
+    run = run or section
     ts = []
     for i in range(reps + 3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        section(*a, **k)
+        run(*a, **k)
         torch.cuda.synchronize()
         if i >= 3:
             ts.append(1000 * (time.perf_counter() - t0))
     for n in (1, 5):    # the first profile of a process is a warm-up
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
-                section(*a, **k)
+                run(*a, **k)
             torch.cuda.synchronize()
     ka = [e for e in prof.key_averages() if _device_us(e) > 0]
     us = sum(_device_us(e) for e in ka) / 5
@@ -542,11 +550,22 @@ def deblock_section(progs, idx, reps=20):
             {e.key: e.count / 5 for e in ka})
 
 
+def deblock_section(progs, idx):
+    """The deblocking section of one picture alone (section_alone)."""
+    return section_alone(progs, idx, "_deblock_section")
+
+
+def residual_section(progs, idx):
+    """The residual section of one picture alone (section_alone): B4 over
+    every size bin, the escape corrections, dequant + inverse transform."""
+    return section_alone(progs, idx, "_residual_section")
+
+
 def profile_picture(progs, idx):
     """torch.profiler over one picture (the ones before it decoded first,
     untraced): wall ms, device busy ms (the sum of kernel self times, one
-    stream), and the device ms and launches of the intra scan and of the
-    deblocking kernels (B8, B9) in the picture."""
+    stream), and the device ms and launches of the intra scan, of the
+    deblocking kernels (B8, B9) and of B4 in the picture."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     import libde265_tpu_torch as lt
@@ -565,8 +584,8 @@ def profile_picture(progs, idx):
     ka = prof.key_averages()
     busy = sum(_device_us(e) for e in ka) / 1000
     named = {e.key: (_device_us(e) / 1000, e.count) for e in ka
-             if ("intra" in e.key or "deblock_kernel" in e.key) and
-             _device_us(e) > 0}
+             if any(k in e.key for k in ("intra", "deblock_kernel",
+                                         "densify")) and _device_us(e) > 0}
     return wall, busy, named
 
 
@@ -866,9 +885,10 @@ def _expand_cases(rng, t):
     return out
 
 
-def random_cases(dev, H=1088, W=1920):
+def random_cases(dev, b4_sizes, H=1088, W=1920):
     """Seeded random inputs at the 1080p main-path shapes:
-    {wrapper name: [(args, kwargs), ...]}."""
+    {wrapper name: [(args, kwargs), ...]}.  b4_sizes: [(N, S), ...], the
+    size bins of a real 1080p P picture (its capacities)."""
     import torch
     from libde265_tpu_torch.feed import WAVE_CAP
     from libde265_tpu_torch.ops import intra_window as iw
@@ -887,9 +907,11 @@ def random_cases(dev, H=1088, W=1920):
                                                                 H, W)
     cases["residual_stripes"] = _residual_cases(rng, t, H, W)
     cases["expand_blocks"] = _expand_cases(rng, t)
-    for S, N in ((4, 4096), (8, 2048), (16, 512), (32, 128)):
-        cv, coff = _csr_bin(rng, N, S)
-        cases["densify_bin"].append(((t(cv), t(coff)), {"N": N, "S": S}))
+    for sizes in ([(4096, 4), (2048, 8), (512, 16), (128, 32)], b4_sizes):
+        bins = [(*map(t, _csr_bin(rng, N, S)), N, S) for N, S in sizes]
+        cases["densify_bins"].append(((bins,), {}))
+    cv, coff = _csr_bin(rng, 2048, 8)
+    cases["densify_bin"].append(((t(cv), t(coff)), {"N": 2048, "S": 8}))
 
     def luma_params(a, b):
         return (t(rng.integers(0, 3, (a, b)).astype(np.int32)),
@@ -1004,6 +1026,8 @@ def plain_of(name):
     if name == "densify_bin":
         return lambda cv, coff, N, S: coef_cuda.densify_bin_plain(cv, coff,
                                                                   N, S)
+    if name == "densify_bins":
+        return coef_cuda.densify_bins_plain
     if name in ("deblock_luma", "deblock_chroma"):
         return getattr(deblock_cuda, f"{name}_plain")
     if name == "luma_pass":
@@ -1071,7 +1095,9 @@ def _work(name, args, kw, out):
     counted on) for one call: each input read once and each output written
     once.  B3 reads its segments' windows, not the whole ring, and its
     operations run on the samples the segments cover; B5 reads the
-    residual rows its segments place."""
+    residual rows its segments place; B4 reads the words its TUs' runs
+    cover (not the capacity of cv) and writes its buffer (the views
+    alias it)."""
     nbytes = _nbytes(args) + _nbytes(kw) + _nbytes(out)
     nout = sum(t.numel() for t in _tensors(out))
     if name == "mc_stripes":
@@ -1086,6 +1112,12 @@ def _work(name, args, kw, out):
         nbytes += 4 * int(((OR + T - 1) * (ws + T - 1)).sum()) - \
             _nbytes(refs)
         nout = int((OR * ws).sum())
+    elif name == "densify_bins":
+        (bins,), (buf, _) = args, out
+        nbytes = buf.numel() * 4 + sum(
+            4 * (N + 1) + 4 * min(cv.shape[0], (int(coff[N]) + 3) // 4)
+            for cv, coff, N, _ in bins)
+        nout = buf.numel()
     elif name == "residual_stripes":
         res, nseg, sw = args
         live = int(nseg.clamp(max=sw.shape[1]).sum())
@@ -1178,6 +1210,22 @@ def time_calls(timed):
             row[3] += nout
             row[4] += 1
     return ms
+
+
+def expand_library_ms(calls):
+    """B1's library yardstick: the one indexing call that
+    expand_blocks_plain makes (rows[sel]) on each call's inputs, summed
+    over the calls: (CUDA-event ms, device ms by torch.profiler)."""
+    import torch
+    ev, dev = 0.0, 0.0
+    for (blocks, inv), kw in calls:
+        B, M = kw["B"], blocks.shape[0]
+        nb = (kw["total"] + B - 1) // B
+        rows = torch.cat([blocks.reshape(M, B), blocks.new_zeros((1, B))])
+        sel = torch.where(inv[:nb] >= 0, inv[:nb].long(), M).clamp(max=M)
+        ev += median_ms(lambda: rows[sel])
+        dev = _add(dev, device_ms(lambda: rows[sel]))
+    return ev, dev
 
 
 def _step_views(trace):
@@ -1387,6 +1435,9 @@ def main():
             if c[B8] != 1 or c[B9] != 1:
                 raise AssertionError(f"{what}: {c[B8]} B8 and {c[B9]} B9 "
                                      f"launches in a picture, not 1 / 1")
+            if c[B4] != 1:
+                raise AssertionError(f"{what}: {c[B4]} B4 launches in a "
+                                     f"picture, not 1")
         for kind, want in (("I", True), ("P", False)):
             sel = [r for r in rows if r[2] == want]
             if not sel:
@@ -1406,18 +1457,22 @@ def main():
             f"{json.dumps(spent)} on {smi}")
     for what, pp, idx in (("P-GOP I", progs, first_i),
                           ("P-GOP P", progs, first_p)):
-        sms, dms, ops = deblock_section(pp, idx)
-        log(f"deblocking section of {what} picture {idx} alone: synced "
-            f"{sms:.4f} ms (median of 20), device "
-            f"{'not measured' if dms is None else f'{dms:.4f} ms'}, "
-            f"{sum(ops.values()):g} device operations on {smi}")
+        for sec, fn in (("deblocking", deblock_section),
+                        ("residual", residual_section)):
+            sms, dms, ops = fn(pp, idx)
+            log(f"{sec} section of {what} picture {idx} alone: synced "
+                f"{sms:.4f} ms (median of 20), device "
+                f"{'not measured' if dms is None else f'{dms:.4f} ms'}, "
+                f"{sum(ops.values()):g} device operations"
+                + (f" {json.dumps(ops)}" if sec == "residual" else "")
+                + f" on {smi}")
     for what, pp, idx in (("all-intra", iprogs, 1),
                           ("P-GOP P", progs, first_p)):
         wall, busy, named = profile_picture(pp, idx)
         if busy > 0:
             log(f"profiled {what} picture {idx}: wall {wall:.2f} ms, device "
                 f"busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}; "
-                f"intra and deblocking kernels (device ms, launches) "
+                f"intra, deblocking and B4 kernels (device ms, launches) "
                 f"{json.dumps(named)} on {smi}")
         else:
             log(f"profiled {what} picture {idx}: the profiler saw no device "
@@ -1428,7 +1483,10 @@ def main():
     fd.plan_stream(progs)
     caps = capture_inputs(fd, progs[:first_p + 1])
     del fd
-    rand = random_cases(dev)
+    (b4_bins,), _ = caps[first_p]["densify_bins"][0]
+    b4_sizes = [(N, S) for _, _, N, S in b4_bins]
+    log(f"{B4}: the 1080p P picture's bins (N, S) {b4_sizes}")
+    rand = random_cases(dev, b4_sizes)
     err, ncases = compare_kernels(
         [("random", rand),
          (f"frame {first_i} (I)", caps[first_i]),
@@ -1454,9 +1512,10 @@ def main():
         f"{b5_i[5]} ms) vs plain {b5_i[1]:.4f} ms, bound "
         f"{_bound(B5, b5_i[2], b5_i[3])[0]:.4f} ms ({b5_i[2]} bytes) on "
         f"{smi}")
-    # B5, B2, B8 and B9 allocate their outputs unfilled and copy nothing:
-    # the kernel must be the only device work of a call
-    for name, mark in (("residual_stripes", "residual_kernel"),
+    # B5, B2, B8, B9 and B4 allocate their outputs unfilled and copy
+    # nothing: the kernel must be the only device work of a call
+    for name, mark in (("densify_bins", "densify_bins_kernel"),
+                       ("residual_stripes", "residual_kernel"),
                        ("paint_pu_idx", "paint_kernel"),
                        ("deblock_luma", "deblock_kernel"),
                        ("deblock_chroma", "deblock_kernel")):
@@ -1470,6 +1529,11 @@ def main():
                                  f"{json.dumps(seen)}")
         else:
             log(f"{name}: device work of one call {json.dumps(seen)}")
+    library = {n: None for n in ROWS}
+    library[B1], lib_dev = expand_library_ms(caps[first_p]["expand_blocks"])
+    log(f"{B1}: the one indexing call of its plain version (rows[sel]) on "
+        f"the P picture's inputs {library[B1]:.4f} ms (CUDA events; device "
+        f"time {lib_dev} ms) on {smi}")
     compare_intra_trace(caps[first_i]["intra_scan"], err, ncases, ms)
     log(f"intra scan of 1080p I picture {first_i}: "
         f"{json.dumps(scan_shape(caps[first_i]['intra_scan']))}")
@@ -1493,7 +1557,8 @@ def main():
         f"{B2_FIRST_DESIGN_MS}; B8 {ms[B8][5]} ({ms[B8][4]} launch) vs "
         f"B8_FIRST_DESIGN_MS = {B8_FIRST_DESIGN_MS}; B9 {ms[B9][5]} "
         f"({ms[B9][4]} launch) vs B9_FIRST_DESIGN_MS = "
-        f"{B9_FIRST_DESIGN_MS}; on {smi}")
+        f"{B9_FIRST_DESIGN_MS}; B4 {ms[B4][5]} ({ms[B4][4]} launch) vs "
+        f"B4_FIRST_DESIGN_MS = {B4_FIRST_DESIGN_MS} (2 launches); on {smi}")
 
     # ---- phase 5: small streams ----
     # 104x72, CTB 64 (the corpus stream conf_window_104x72): two intra
@@ -1549,7 +1614,7 @@ def main():
                         "max_abs_err": err[n], "ms": ms[n][0],
                         "ms_device": ms[n][5], "plain_ms": ms[n][1],
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": None})
+                        "library_ms": library[n]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

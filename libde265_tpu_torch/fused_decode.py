@@ -281,34 +281,7 @@ def _frame_fn(refs_y, refs_cb, refs_cr, feed, sf_tables, st, host):
                        for _ in range(2)]
 
     # ---- residual bins (densify + dequant + IDCT) ----
-    bin_res = {}
-    for lg in st["lgs"]:
-        s = 1 << lg
-        bf = feed[f"bin{lg}"]
-        n = bf["qp"].shape[0]
-        levels = coef_cuda.densify_bin(bf["cv"], bf["coff"], N=n, S=s)
-        if "cfx" in bf:
-            # escape corrections: the 4-bit wire value clamps to +-7; the
-            # full-precision delta is added here (pads carry cfx = -1)
-            # (positions are distinct: read, add, write; see _scatter)
-            cfx = bf["cfx"].long()
-            ok = (cfx >= 0) & (cfx < n * s * s)
-            idx = w(ok, cfx, n * s * s)
-            flat = torch.cat([levels.reshape(-1), levels.new_zeros(1)])
-            flat[idx] = flat[idx] + bf["cfv"]
-            levels = flat[:-1].view(n, s, s)
-        flags = bf["flags"]
-        tskip = (flags & TU_TRANSFORM_SKIP) != 0
-        use_dst = (flags & TU_USE_DST) != 0
-        bypass = (flags & TU_TQ_BYPASS) != 0
-        if st["scaling"]:
-            sf = sf_tables[lg - 2][bf["mid"].long()]
-            res = tx.residual_batch(levels, tx.qp_to_fact(bf["qp"]), tskip,
-                                    use_dst, lg, bd, sf=sf, qp=bf["qp"])
-        else:
-            res = tx.residual_batch(levels, tx.qp_to_fact(bf["qp"]), tskip,
-                                    use_dst, lg, bd)
-        bin_res[lg] = w(bypass[:, None, None], levels, res)
+    bin_res = _residual_section(feed, sf_tables, st)
 
     # ---- inter residual add + clip ----
     if st.get("pallas_mc"):
@@ -371,6 +344,51 @@ def _frame_fn(refs_y, refs_cb, refs_cr, feed, sf_tables, st, host):
                                                    rings[c].shape[1])
         return tuple(planes) + tuple(rings)
     return tuple(planes)
+
+
+def _add_escapes(buf, off: int, n: int, cfx, cfv):
+    """Escape corrections of one bin, in place: buf[off + cfx] += cfv where
+    0 <= cfx < n (the bin's levels start at buf[off]); the rest, padding
+    rows (cfx = -1) among them, go to buf's last element, the scratch.  The
+    4-bit wire value clamps a level to +-7; cfv is the full-precision
+    delta.  Positions are distinct within a bin and integer adds commute,
+    so this equals the JAX program's `levels.at[...].add(cfv,
+    mode="drop")`."""
+    ok = (cfx >= 0) & (cfx < n)
+    buf.index_add_(0, torch.where(ok, cfx + off, buf.shape[0] - 1), cfv)
+
+
+def _residual_section(feed, sf_tables, st):
+    """Residuals of every TU size bin of a picture: {lg: [N, S, S] int32},
+    the levels themselves where a TU bypasses transform and quantisation.
+    B4 densifies all bins in one launch into one buffer, the escape
+    corrections add into it in place, then dequant + inverse transform."""
+    lgs = st["lgs"]
+    if not lgs:
+        return {}
+    bfs = [feed[f"bin{lg}"] for lg in lgs]
+    buf, views = coef_cuda.densify_bins(
+        [(bf["cv"], bf["coff"], bf["qp"].shape[0], 1 << lg)
+         for lg, bf in zip(lgs, bfs)])
+    bd = st["bd"]
+    bin_res, off = {}, 0
+    for lg, bf, levels in zip(lgs, bfs, views):
+        if "cfx" in bf:
+            _add_escapes(buf, off, levels.numel(), bf["cfx"], bf["cfv"])
+        off += levels.numel()
+        flags = bf["flags"]
+        tskip = (flags & TU_TRANSFORM_SKIP) != 0
+        use_dst = (flags & TU_USE_DST) != 0
+        bypass = (flags & TU_TQ_BYPASS) != 0
+        if st["scaling"]:
+            sf = sf_tables[lg - 2][bf["mid"].long()]
+            res = tx.residual_batch(levels, tx.qp_to_fact(bf["qp"]), tskip,
+                                    use_dst, lg, bd, sf=sf, qp=bf["qp"])
+        else:
+            res = tx.residual_batch(levels, tx.qp_to_fact(bf["qp"]), tskip,
+                                    use_dst, lg, bd)
+        bin_res[lg] = torch.where(bypass[:, None, None], levels, res)
+    return bin_res
 
 
 def pad_replicate(plane, hp: int, wp: int):

@@ -28,7 +28,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _P, _I, _L = ct.c_void_p, ct.c_int, ct.c_longlong
 # entry point -> argument types (pointers and the stream as void*)
 SIGNATURES = {
-    "tde_densify": [_P, _L, _P, _P, _I, _I, _P],
+    "tde_densify_bins": [_P, _P],      # (const Args*, stream)
     "tde_deblock_luma": [_P, _P],      # (const Args*, stream)
     "tde_deblock_chroma": [_P, _P],
     "tde_sao_plane": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -26,7 +26,7 @@ from .deblock import _chroma_pass, _luma_pass, pad_edge0
 luma_launches = 0    # B8 launches since the last reset (read by chip_smoke)
 chroma_launches = 0  # B9 launches since the last reset
 # (rows of a tile: 16 or 32, threads of a CTA: 64, 128 or 256) per kernel,
-# from the sweep of scripts/torch_deblock_section.py (PERF.md)
+# from the sweep of scripts/torch_section.py --sweep deblock (PERF.md)
 TILE = {"tde_deblock_luma": (32, 128), "tde_deblock_chroma": (16, 256)}
 
 
