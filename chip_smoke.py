@@ -17,30 +17,29 @@ Phases (any failure raises and the script exits non-zero):
        b. a 1920x1088 all-intra GOP (4 frames, intra period 1), decoded
           with PipelinedDecoder(): the intra scan, one persistent kernel
           launch per picture with intra blocks, no fused-step launch;
-     then synced per-picture milliseconds and launches (I and P; B4, B8
-     and B9 once each in every picture), the synced feed pack, intra scan
-     and deblocking of single pictures, the deblocking and the residual
-     sections of the first I and P picture alone (synced ms, device ms
-     and device operations), and one all-intra picture under
-     torch.profiler (device busy and idle share, the intra kernels by
-     name);
+     then synced per-picture milliseconds and launches (I and P; B1, B4,
+     B8 and B9 once each in every picture), the synced feed pack, intra
+     scan and deblocking of single pictures, the deblocking, the residual
+     and the feed upload sections of the first I and P picture alone
+     (synced ms, device ms and device operations; the upload also as the
+     whole feed), and one all-intra picture under torch.profiler
+     (device busy and idle share, the intra kernels by name);
   4. kernels vs plain: each kernel against its plain PyTorch version on
      the card, on seeded random inputs at the 1080p shapes and on the
      inputs captured from the first I and P picture (the intra kernels on
      the first I picture's whole scan); exact equality; CUDA-event times of
      both, each kernel's device time (torch.profiler) and bound; B5 timed
-     on the I picture's calls as well (bins with no segment), and B4's,
-     B5's, B2's, B8's and B9's calls checked to run no device work besides
-     their kernel; B4 (every size bin of a picture in one call) also on
-     random bins of the P picture's sizes; B1's library yardstick, the
-     one indexing call of its plain version, timed.  B8 and B9 (both
-     edge orientations of a plane in one launch) are also held through
-     the per-orientation wrappers.  The
-     persistent scan also on synthetic pictures whose steps share all four
-     luma sizes.  The separate B6 and B7 kernels and the fused step (the
-     scan's body, one launch per step and size bin) are held here only:
-     the decode runs B6's gather and B7's store inside the persistent
-     scan;
+     on the I picture's calls as well (bins with no segment), and B1's,
+     B4's, B5's, B2's, B8's and B9's calls checked to run no device work
+     besides their kernel; B4 (every size bin of a picture in one call)
+     also on random bins of the P picture's sizes; B1's library
+     yardstick, the one indexing call of its plain version, timed.  B8
+     and B9 (both edge orientations of a plane in one launch) are also
+     held through the per-orientation wrappers.  The persistent scan
+     also on synthetic pictures whose steps share all four luma sizes.
+     The separate B6 and B7 kernels and the fused step (the scan's body,
+     one launch per step and size bin) are held here only: the decode
+     runs B6's gather and B7's store inside the persistent scan;
   5. small streams, bit-exact on the card: 104x72 with CTB 64 (two intra
      sizes per plane, a chroma plane that is not a multiple of 8 wide or
      high) and a 416x240 B/weighted/2-ref stream under both formulations.
@@ -155,8 +154,8 @@ INPLACE = ("window_scatter", "intra_step")   # update their first argument
 # their first design (one launch per edge orientation, one thread per
 # segment and edge, each on a clone of a zero-padded copy of the plane),
 # the fused intra step per 1080p I picture when it ran the main path
-# (1584 launches), and B4 per 1080p P picture in its first design (one
-# launch per size bin, a warp per TU, over a zero-filled output)
+# (1584 launches), B4 per 1080p P picture in its first design (one
+# launch per size bin, a warp per TU, over a zero-filled output), and B1
 B3_FIRST_DESIGN_MS = 0.2100
 B5_FIRST_DESIGN_MS = 0.0737
 B2_FIRST_DESIGN_MS = 0.0191
@@ -164,6 +163,9 @@ B8_FIRST_DESIGN_MS = 0.0280
 B9_FIRST_DESIGN_MS = 0.0156
 FUSED_STEP_MAIN_PATH_MS = 7.9225
 B4_FIRST_DESIGN_MS = 0.0132
+# B1 per 1080p P picture in its first design (one 256-thread CTA per output
+# block, 4-byte loads and stores, inv re-read by every thread)
+B1_FIRST_DESIGN_MS = 0.0025
 
 
 def log(*a):
@@ -502,33 +504,36 @@ def section_ms(progs, idx):
     return spent
 
 
-def section_alone(progs, idx, name, run=None, reps=20):
+def section_alone(progs, idx, name, run=None, reps=20, owner=None):
     """The picture program's section fused_decode.<name> of one picture
     alone (the pictures before it decoded first): its arguments captured
     while the picture decodes, then run(*args) again on them (run defaults
     to the section itself): synced ms (median of reps), and device ms and
     device operations by name per run (torch.profiler over five runs,
     after a first profile that only warms the profiler up: kernels, fills
-    and copies; the ms is None where the profiler sees no device time)."""
+    and copies; the ms is None where the profiler sees no device time).
+    owner: where the section lives, the module fused_decode by default;
+    for a method, its class (the captured arguments then begin with the
+    decoder, and run gets it too)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     import libde265_tpu_torch as lt
-    fdm = lt.fused_decode
+    owner = owner or lt.fused_decode
     fd = lt.FusedDecoder()
     fd.plan_stream(progs)
     for p in progs[:idx]:
         fd.decode(p)
-    section, seen = getattr(fdm, name), []
+    section, seen = getattr(owner, name), []
 
     def record(*a, **k):
         seen.append((a, k))
         return section(*a, **k)
 
-    setattr(fdm, name, record)
+    setattr(owner, name, record)
     try:
         fd.decode(progs[idx])
     finally:
-        setattr(fdm, name, section)
+        setattr(owner, name, section)
     a, k = seen[0]
     run = run or section
     ts = []
@@ -548,6 +553,21 @@ def section_alone(progs, idx, name, run=None, reps=20):
     us = sum(_device_us(e) for e in ka) / 5
     return (statistics.median(ts), (us / 1000 if us > 0 else None),
             {e.key: e.count / 5 for e in ka})
+
+
+def upload_section(progs, idx):
+    """The feed upload of one picture alone (section_alone of the method
+    FusedDecoder._sparse_upload), as the decoder runs it (host block
+    compaction and inverse map into a pinned slot, the copies, B1), and the
+    whole feed of the same picture uploaded instead
+    (torch.from_numpy(buf).to(device)): one section_alone result each."""
+    import torch
+    import libde265_tpu_torch as lt
+    cls = lt.fused_decode.FusedDecoder
+    whole = lambda fd, buf: torch.from_numpy(buf).to(fd.device)  # noqa: E731
+    return (section_alone(progs, idx, "_sparse_upload", owner=cls),
+            section_alone(progs, idx, "_sparse_upload", run=whole,
+                          owner=cls))
 
 
 def deblock_section(progs, idx):
@@ -1212,20 +1232,34 @@ def time_calls(timed):
     return ms
 
 
-def expand_library_ms(calls):
-    """B1's library yardstick: the one indexing call that
-    expand_blocks_plain makes (rows[sel]) on each call's inputs, summed
-    over the calls: (CUDA-event ms, device ms by torch.profiler)."""
+def expand_library_call(blocks, inv, total, B):
+    """B1's library yardstick, ready to run: the one indexing call that
+    expand_blocks_plain makes (rows[sel]), on these inputs."""
     import torch
-    ev, dev = 0.0, 0.0
+    nb, M = (total + B - 1) // B, blocks.shape[0]
+    rows = torch.cat([blocks.reshape(M, B), blocks.new_zeros((1, B))])
+    sel = torch.where(inv[:nb] >= 0, inv[:nb].long(), M).clamp(max=M)
+    return lambda: rows[sel]
+
+
+def expand_library_ms(calls):
+    """expand_library_call and B1 in turns (library, kernel, kernel,
+    library; the lower of each pair) on each call's inputs, summed over
+    the calls: (library CUDA-event ms, library device ms by torch.profiler,
+    B1 CUDA-event ms of the same turns).  At about 2 us of device work
+    both event figures are mostly the host's launch time, so they are
+    taken in turns, not at two moments of the run."""
+    from libde265_tpu_torch.ops import expand
+    ev, dev, kern = 0.0, 0.0, 0.0
     for (blocks, inv), kw in calls:
-        B, M = kw["B"], blocks.shape[0]
-        nb = (kw["total"] + B - 1) // B
-        rows = torch.cat([blocks.reshape(M, B), blocks.new_zeros((1, B))])
-        sel = torch.where(inv[:nb] >= 0, inv[:nb].long(), M).clamp(max=M)
-        ev += median_ms(lambda: rows[sel])
-        dev = _add(dev, device_ms(lambda: rows[sel]))
-    return ev, dev
+        lib = expand_library_call(blocks, inv, **kw)
+        k = lambda: expand.expand_blocks(blocks, inv, **kw)  # noqa: E731
+        t_l1, t_k1, t_k2, t_l2 = (median_ms(lib), median_ms(k),
+                                  median_ms(k), median_ms(lib))
+        ev += min(t_l1, t_l2)
+        kern += min(t_k1, t_k2)
+        dev = _add(dev, device_ms(lib))
+    return ev, dev, kern
 
 
 def _step_views(trace):
@@ -1435,9 +1469,9 @@ def main():
             if c[B8] != 1 or c[B9] != 1:
                 raise AssertionError(f"{what}: {c[B8]} B8 and {c[B9]} B9 "
                                      f"launches in a picture, not 1 / 1")
-            if c[B4] != 1:
-                raise AssertionError(f"{what}: {c[B4]} B4 launches in a "
-                                     f"picture, not 1")
+            if c[B4] != 1 or c[B1] != 1:
+                raise AssertionError(f"{what}: {c[B4]} B4 and {c[B1]} B1 "
+                                     f"launches in a picture, not 1 / 1")
         for kind, want in (("I", True), ("P", False)):
             sel = [r for r in rows if r[2] == want]
             if not sel:
@@ -1466,6 +1500,13 @@ def main():
                 f"{sum(ops.values()):g} device operations"
                 + (f" {json.dumps(ops)}" if sec == "residual" else "")
                 + f" on {smi}")
+        for how, (sms, dms, ops) in zip(("sparse (B1)", "whole feed"),
+                                        upload_section(pp, idx)):
+            log(f"upload section of {what} picture {idx} alone, {how}: "
+                f"synced {sms:.4f} ms (median of 20), device "
+                f"{'not measured' if dms is None else f'{dms:.4f} ms'}, "
+                f"{sum(ops.values()):g} device operations {json.dumps(ops)} "
+                f"on {smi}")
     for what, pp, idx in (("all-intra", iprogs, 1),
                           ("P-GOP P", progs, first_p)):
         wall, busy, named = profile_picture(pp, idx)
@@ -1512,9 +1553,10 @@ def main():
         f"{b5_i[5]} ms) vs plain {b5_i[1]:.4f} ms, bound "
         f"{_bound(B5, b5_i[2], b5_i[3])[0]:.4f} ms ({b5_i[2]} bytes) on "
         f"{smi}")
-    # B5, B2, B8, B9 and B4 allocate their outputs unfilled and copy
+    # B5, B2, B8, B9, B4 and B1 allocate their outputs unfilled and copy
     # nothing: the kernel must be the only device work of a call
-    for name, mark in (("densify_bins", "densify_bins_kernel"),
+    for name, mark in (("expand_blocks", "expand_kernel"),
+                       ("densify_bins", "densify_bins_kernel"),
                        ("residual_stripes", "residual_kernel"),
                        ("paint_pu_idx", "paint_kernel"),
                        ("deblock_luma", "deblock_kernel"),
@@ -1530,10 +1572,12 @@ def main():
         else:
             log(f"{name}: device work of one call {json.dumps(seen)}")
     library = {n: None for n in ROWS}
-    library[B1], lib_dev = expand_library_ms(caps[first_p]["expand_blocks"])
+    library[B1], lib_dev, b1_ev = expand_library_ms(
+        caps[first_p]["expand_blocks"])
     log(f"{B1}: the one indexing call of its plain version (rows[sel]) on "
         f"the P picture's inputs {library[B1]:.4f} ms (CUDA events; device "
-        f"time {lib_dev} ms) on {smi}")
+        f"time {lib_dev} ms), B1 in turns with it {b1_ev:.4f} ms (CUDA "
+        f"events) on {smi}")
     compare_intra_trace(caps[first_i]["intra_scan"], err, ncases, ms)
     log(f"intra scan of 1080p I picture {first_i}: "
         f"{json.dumps(scan_shape(caps[first_i]['intra_scan']))}")
@@ -1558,7 +1602,9 @@ def main():
         f"B8_FIRST_DESIGN_MS = {B8_FIRST_DESIGN_MS}; B9 {ms[B9][5]} "
         f"({ms[B9][4]} launch) vs B9_FIRST_DESIGN_MS = "
         f"{B9_FIRST_DESIGN_MS}; B4 {ms[B4][5]} ({ms[B4][4]} launch) vs "
-        f"B4_FIRST_DESIGN_MS = {B4_FIRST_DESIGN_MS} (2 launches); on {smi}")
+        f"B4_FIRST_DESIGN_MS = {B4_FIRST_DESIGN_MS} (2 launches); B1 "
+        f"{ms[B1][5]} ({ms[B1][4]} launch) vs B1_FIRST_DESIGN_MS = "
+        f"{B1_FIRST_DESIGN_MS}; on {smi}")
 
     # ---- phase 5: small streams ----
     # 104x72, CTB 64 (the corpus stream conf_window_104x72): two intra

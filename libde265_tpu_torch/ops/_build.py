@@ -40,7 +40,7 @@ SIGNATURES = {
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tde_paint_pu_idx": [_P, _P, _I, _P, _I, _P, _I, _I, _I, _P],
     "tde_residual_stripes": [_P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _P],
-    "tde_expand_blocks": [_P, _I, _P, _I, _P, _L, _I, _P],
+    "tde_expand_blocks": [_P, _P],      # (const Args*, stream)
 }
 
 _lock = threading.Lock()
@@ -117,6 +117,8 @@ def build() -> Path:
 def lib() -> ct.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
+    if _lib is not None:      # loaded: no lock on the launch path
+        return _lib
     with _lock:
         if _lib is None:
             L = ct.CDLL(str(build()))

@@ -11,12 +11,24 @@ package's XLA form, a scatter by the forward map ``idx [M]`` (compact row
 """
 from __future__ import annotations
 
+import ctypes as ct
+
 import torch
 
 from . import _build
 from ._tensors import check, on_cuda, stream_of
 
 launches = 0  # kernel launches since the last reset (read by chip_smoke)
+# (threads a CTA, output blocks a CTA): from scripts/torch_section.py
+# --sweep expand on the 1080p P picture's call
+TILE = (64, 1)
+
+
+class _Args(ct.Structure):    # csrc/expand.cu Args
+    _fields_ = [("blocks", ct.c_void_p), ("inv", ct.c_void_p),
+                ("out", ct.c_void_p), ("total", ct.c_longlong),
+                ("M", ct.c_int), ("nb", ct.c_int), ("B", ct.c_int),
+                ("threads", ct.c_int), ("per", ct.c_int)]
 
 
 def expand_blocks_plain(blocks, inv, *, total: int, B: int):
@@ -42,7 +54,9 @@ def _expand_blocks(blocks, idx, *, total: int, B: int):
 def expand_blocks(blocks, inv, *, total: int, B: int):
     """Kernel B1 on a CUDA tensor, expand_blocks_plain on a CPU tensor.
 
-    blocks: [M, B] int32 compact blocks; inv: [nb] int32."""
+    blocks: [M, B] int32 compact blocks; inv: [nb] int32.  On the card B
+    must be a multiple of 4 and blocks 16-byte aligned (the kernel moves 16
+    bytes at a time), else ValueError."""
     global launches
     if not on_cuda("expand_blocks", blocks):
         return expand_blocks_plain(blocks, inv, total=total, B=B)
@@ -51,12 +65,16 @@ def expand_blocks(blocks, inv, *, total: int, B: int):
     if blocks.dim() != 2 or blocks.shape[1] != B or inv.shape != (nb,):
         raise ValueError(f"expand_blocks: blocks {tuple(blocks.shape)}, inv "
                          f"{tuple(inv.shape)} for total={total}, B={B}")
-    out = torch.empty(total, dtype=torch.int32, device=blocks.device)
+    src = blocks.data_ptr()
+    if B % 4 or src % 16:
+        raise ValueError(f"expand_blocks: B={B} must be a multiple of 4 and "
+                         f"blocks 16-byte aligned (address {src:#x})")
+    out = blocks.new_empty(total)
     if total == 0:
         return out
-    rc = _build.lib().tde_expand_blocks(blocks.data_ptr(), blocks.shape[0],
-                                        inv.data_ptr(), nb, out.data_ptr(),
-                                        total, B, stream_of(blocks))
+    a = _Args(src, inv.data_ptr(), out.data_ptr(), total, blocks.shape[0],
+              nb, B, *TILE)
+    rc = _build.lib().tde_expand_blocks(ct.addressof(a), stream_of(blocks))
     _build.check_launch("tde_expand_blocks", rc)
     launches += 1
     return out

@@ -2,23 +2,30 @@
 """Sections of the port's picture program on one CUDA card, for one
 checkout, and the tile sweeps of their kernels.
 
-    python3 scripts/torch_section.py [--root DIR] [--sweep deblock|densify]
+    python3 scripts/torch_section.py [--root DIR]
+                                     [--sweep deblock|densify|expand]
 
 Measures libde265_tpu_torch as DIR holds it (default: this checkout), on
 the 1920x1088 P-GOP of chip_smoke.py (this checkout's): the first I and the
 first P picture, each decoded after the pictures before it, then its
-deblocking section and its residual section (B4 densify of every size bin,
-escape corrections, dequant + inverse transform) run alone on the
-arguments they had (chip_smoke.section_alone: synced ms, device ms, device
-operations by name).  A checkout whose picture program runs the residual
-section inline (no fused_decode._residual_section) gets the same
-statements run on its modules (`residual_inline`).
+deblocking section, its residual section (B4 densify of every size bin,
+escape corrections, dequant + inverse transform) and its feed upload
+(FusedDecoder._sparse_upload: block compaction into a pinned slot, copies,
+B1; and beside it the whole feed of the picture uploaded instead) run
+alone on the arguments they had (chip_smoke.section_alone: synced ms,
+device ms, device operations by name).  A checkout whose picture program
+runs the residual section inline (no fused_decode._residual_section) gets
+the same statements run on its modules (`residual_inline`).  Then the host
+time of each step of one B1 wrapper call on the P picture's inputs
+(`launch_steps`: perf_counter_ns over 1,000 calls of each step).
 
 --sweep deblock (this checkout's kernels): B8 and B9 on the P picture's
 calls at every tile height and CTA size the kernels take.  --sweep
 densify: B4 on the P picture's call, each size bin alone at every tile
 size, lanes per TU and CTA size, then the whole call with each CTA size's
-best shapes and with the shapes the wrapper uses.  Device ms per call
+best shapes and with the shapes the wrapper uses.  --sweep expand: B1 on
+the P picture's call at every CTA size and output blocks per CTA, with
+its CUDA-event ms, and its library yardstick rows[sel].  Device ms per call
 (torch.profiler over ten calls), back to back and with the L2 cache flushed
 before each call, each result equal to the plain version.  Prints one JSON
 line per reading, with the card's nvidia-smi line.  To compare two
@@ -39,12 +46,15 @@ DEBLOCK_SWEEP = [(th, nt) for th in (16, 32) for nt in (64, 128, 256)]
 DENSIFY_TILE_BYTES = (4096, 8192, 16384, 32768)
 DENSIFY_LANES = (4, 8, 16, 32)
 DENSIFY_THREADS = (128, 256, 512)
+EXPAND_SWEEP = [(nt, per) for nt in (64, 128, 256) for per in (1, 2, 4)]
 
 
 def kernel_ms(fn, mark, n=10, flush=None):
     """Device ms per call of the kernels whose name holds `mark` over n
-    calls; with flush (a tensor larger than the L2 cache), each call after
-    a write of it, so that the call reads its inputs from device memory."""
+    calls (mark "" for all of them); with flush (a tensor larger than the
+    L2 cache), each call after a write of it, so that the call reads its
+    inputs from device memory (the fill kernel of that write not
+    counted)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     import chip_smoke as cs
@@ -54,7 +64,9 @@ def kernel_ms(fn, mark, n=10, flush=None):
                 flush.fill_(i)
             fn()
         torch.cuda.synchronize()
-    us = sum(cs._device_us(e) for e in prof.key_averages() if mark in e.key)
+    us = sum(cs._device_us(e) for e in prof.key_averages()
+             if mark in e.key and (flush is None or
+                                   "FillFunctor" not in e.key))
     return us / n / 1000 if us > 0 else None
 
 
@@ -71,10 +83,9 @@ def _flush():
     return torch.empty(32 << 20, dtype=torch.int32, device="cuda")  # 128 MB
 
 
-def sweep_deblock(progs, first_p, smi):
+def sweep_deblock(caps, smi):
     import torch
     from libde265_tpu_torch.ops import deblock_cuda as dc
-    caps = _p_picture_calls(progs, first_p)
     saved = dict(dc.TILE)
     flush = _flush()
     try:
@@ -99,10 +110,10 @@ def sweep_deblock(progs, first_p, smi):
         dc.TILE.update(saved)
 
 
-def sweep_densify(progs, first_p, smi):
+def sweep_densify(caps, smi):
     import torch
     from libde265_tpu_torch.ops import coef_cuda as cc
-    (bins,), _ = _p_picture_calls(progs, first_p)["densify_bins"][0]
+    (bins,), _ = caps["densify_bins"][0]
     saved = dict(cc.TILE), cc.THREADS
     flush = _flush()
 
@@ -146,6 +157,101 @@ def sweep_densify(progs, first_p, smi):
         cc.THREADS = saved[1]
 
 
+def sweep_expand(caps, smi):
+    import torch
+    import chip_smoke as cs
+    from libde265_tpu_torch.ops import expand as ex
+    (blocks, inv), kw = caps["expand_blocks"][0]
+    saved = ex.TILE
+    flush = _flush()
+    want = ex.expand_blocks_plain(blocks, inv, **kw)
+    try:
+        for nt, per in EXPAND_SWEEP:
+            ex.TILE = (nt, per)
+            got = ex.expand_blocks(blocks, inv, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"expand_blocks at {nt} threads, {per} "
+                                     f"blocks a CTA differs from plain")
+            run = lambda: ex.expand_blocks(blocks, inv, **kw)  # noqa: E731
+            row = {"threads": nt, "blocks_per_cta": per,
+                   "ms": kernel_ms(run, "expand_kernel"),
+                   "cold_ms": kernel_ms(run, "expand_kernel", flush=flush),
+                   "event_ms": cs.median_ms(run),
+                   "wrapper": (nt, per) == saved}
+            print(json.dumps({"sweep": row, "card": smi}), flush=True)
+    finally:
+        ex.TILE = saved
+    lib = cs.expand_library_call(blocks, inv, **kw)
+    print(json.dumps({"sweep": {"library": "rows[sel]",
+                                "ms": kernel_ms(lib, ""),
+                                "cold_ms": kernel_ms(lib, "", flush=flush),
+                                "event_ms": cs.median_ms(lib)},
+                      "card": smi}), flush=True)
+
+
+def launch_steps(caps, root, smi, n=1000):
+    """Host us of each step of one expand_blocks call on the P picture's
+    inputs, as the measured checkout's wrapper takes them (perf_counter_ns
+    over n calls of the step alone, no sync inside), and of the whole
+    wrapper and rows[sel] the same way."""
+    import ctypes as ct
+    import time
+    import torch
+    import chip_smoke as cs
+    from libde265_tpu_torch.ops import _build, _tensors, expand
+    (blocks, inv), kw = caps["expand_blocks"][0]
+    total, B = kw["total"], kw["B"]
+    nb = (total + B - 1) // B
+    out = expand.expand_blocks(blocks, inv, **kw)
+    fn = _build.lib().tde_expand_blocks
+    ptrs = (blocks.data_ptr(), inv.data_ptr(), out.data_ptr())
+    stream = _tensors.stream_of(blocks)
+    if hasattr(expand, "_Args"):     # one argument struct, built per call
+        def call():
+            a = expand._Args(*ptrs, total, blocks.shape[0], nb, B,
+                             *expand.TILE)
+            return fn(ct.addressof(a), stream)
+    else:                            # eight converted arguments
+        def call():
+            return fn(ptrs[0], blocks.shape[0], ptrs[1], nb, ptrs[2], total,
+                      B, stream)
+    dev = blocks.device
+    steps = {
+        "on_cuda": lambda: _tensors.on_cuda("expand_blocks", blocks),
+        "check": lambda: _tensors.check("expand_blocks", dev, torch.int32,
+                                        blocks, inv),
+        "shape checks": lambda: (blocks.dim() != 2 or blocks.shape[1] != B
+                                 or inv.shape != (nb,)),
+        "alignment check": lambda: B % 4 or blocks.data_ptr() % 16,
+        "torch.empty": lambda: torch.empty(total, dtype=torch.int32,
+                                           device=dev),
+        "new_empty": lambda: blocks.new_empty(total),
+        "_build.lib()": _build.lib,
+        "data_ptr x3": lambda: (blocks.data_ptr(), inv.data_ptr(),
+                                out.data_ptr()),
+        "stream_of": lambda: _tensors.stream_of(blocks),
+        "current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "ctypes call": call,
+        "check_launch": lambda: _build.check_launch("tde_expand_blocks", 0),
+        "expand_blocks": lambda: expand.expand_blocks(blocks, inv, **kw),
+        "rows[sel]": cs.expand_library_call(blocks, inv, total, B),
+    }
+    us = {}
+    for name, step in steps.items():
+        for _ in range(10):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(n):
+            step()
+        us[name] = (time.perf_counter_ns() - t0) / n / 1000
+        torch.cuda.synchronize()
+    print(json.dumps({"root": str(root), "launch_steps_us": us,
+                      "card": smi}), flush=True)
+
+
 def residual_inline(fdm, feed, sf_tables, st):
     """The residual section as a picture program without
     _residual_section runs it inside _frame_fn (one densify_bin call per
@@ -184,7 +290,8 @@ def residual_inline(fdm, feed, sf_tables, st):
 
 def sections(progs, idx):
     """(name, (synced ms, device ms, device operations by name)) of the
-    deblocking and the residual section of picture idx."""
+    deblocking, the residual and the upload section of picture idx, and of
+    the whole-feed upload of the same picture."""
     import chip_smoke as cs
     import libde265_tpu_torch as lt
     fdm = lt.fused_decode
@@ -195,15 +302,17 @@ def sections(progs, idx):
             progs, idx, "_frame_fn",
             run=lambda _y, _cb, _cr, feed, sf_tables, st, _host:
             residual_inline(fdm, feed, sf_tables, st))
+    upload, whole = cs.upload_section(progs, idx)
     return [("deblocking", cs.deblock_section(progs, idx)),
-            ("residual", residual)]
+            ("residual", residual), ("upload", upload),
+            ("upload (whole feed)", whole)]
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE),
                     help="checkout whose libde265_tpu_torch is measured")
-    ap.add_argument("--sweep", choices=("deblock", "densify"),
+    ap.add_argument("--sweep", choices=("deblock", "densify", "expand"),
                     help="also sweep that kernel's tile shapes")
     a = ap.parse_args()
     root = Path(a.root).resolve()
@@ -238,10 +347,11 @@ def main():
                               "ops": sorted(([v, k[:100]] for k, v in
                                              ops.items()), reverse=True),
                               "card": smi}), flush=True)
-    if a.sweep == "deblock":
-        sweep_deblock(progs, first_p, smi)
-    elif a.sweep == "densify":
-        sweep_densify(progs, first_p, smi)
+    caps = _p_picture_calls(progs, first_p)
+    launch_steps(caps, root, smi)
+    if a.sweep:
+        {"deblock": sweep_deblock, "densify": sweep_densify,
+         "expand": sweep_expand}[a.sweep](caps, smi)
 
 
 if __name__ == "__main__":

@@ -217,6 +217,13 @@ def random_csr(rng, N, S, max_nnz, dense_frac=0.1):
     return bytes_to_words(bs), np.array(offs, np.int32)
 
 
+def poison(n):
+    """Fill and free n int32 on the card, so that the caching allocator
+    hands the next allocation of that size memory that holds 0x7f7f7f7f."""
+    torch.full((n,), 0x7F7F7F7F, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+
+
 def t32(a, device="cpu"):
     """numpy -> int32 (or bool) torch tensor."""
     a = np.ascontiguousarray(a)

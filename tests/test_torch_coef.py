@@ -16,7 +16,7 @@ from libde265_tpu_torch import fused_decode as tfd
 from libde265_tpu_torch.ops import coef_cuda
 
 from _torch_common import (bytes_to_words, cuda, encode_csr,  # noqa: F401
-                           random_csr, t32)
+                           poison, random_csr, t32)
 
 SHAPES = {4: 77, 8: 41, 16: 13, 32: 9}
 
@@ -181,13 +181,6 @@ def test_escape_corrections_match_jax():
         off += n
 
 
-def _poison(n):
-    """Fill and free n int32 on the card, so that the caching allocator
-    hands the next allocation of that size memory that holds 0x7f7f7f7f."""
-    torch.full((n,), 0x7F7F7F7F, dtype=torch.int32, device="cuda")
-    torch.cuda.synchronize()
-
-
 def _on_card(bins, dev):
     return [(t32(cv, dev), t32(coff, dev), N, S) for cv, coff, N, S in bins]
 
@@ -204,7 +197,7 @@ def test_densify_bins_kernel_one_launch(cuda, seed):  # noqa: F811
     bins = (_hd_bins(np.random.default_rng(5)) if seed == "1080p" else
             _picture_bins(seed))
     args = _on_card(bins, cuda)
-    _poison(sum(N * S * S for *_, N, S in bins) + 1)
+    poison(sum(N * S * S for *_, N, S in bins) + 1)
     n0 = coef_cuda.launches
     buf, views = coef_cuda.densify_bins(args)
     want, _ = coef_cuda.densify_bins_plain(args)
@@ -229,7 +222,7 @@ def test_densify_bins_kernel_tile_shapes(cuda, tile):  # noqa: F811
         for S in coef_cuda.TILE:
             coef_cuda.TILE[S] = (min(tus, 4096 // (S * S)), lanes)
         coef_cuda.THREADS = threads
-        _poison(sum(N * S * S for *_, N, S in bins) + 1)
+        poison(sum(N * S * S for *_, N, S in bins) + 1)
         buf, _ = coef_cuda.densify_bins(args)
         want, _ = coef_cuda.densify_bins_plain(args)
         torch.cuda.synchronize()
@@ -243,7 +236,7 @@ def test_densify_bins_kernel_tile_shapes(cuda, tile):  # noqa: F811
 def test_densify_bins_all_empty(cuda):  # noqa: F811
     """Bins with no TU: one launch still writes the scratch element."""
     z = t32(np.zeros(1), cuda)
-    _poison(1)
+    poison(1)
     n0 = coef_cuda.launches
     buf, views = coef_cuda.densify_bins([(z, z, 0, 4), (z, z, 0, 32)])
     torch.cuda.synchronize()

@@ -14,10 +14,10 @@ from libde265_tpu.decoder import PU_DTYPE
 from libde265_tpu.ops import mc_pallas as mp
 
 from libde265_tpu_torch import fused_decode as tfd
-from libde265_tpu_torch.ops import expand, mc_seg
+from libde265_tpu_torch.ops import _tensors, expand, mc_seg
 
 from _torch_common import (OWN_CORPUS, cuda, gop_bytes,  # noqa: F401
-                           programs, t32)
+                           poison, programs, t32)
 
 
 def random_pus(rng, H, W, L=1, max_mv=40, n_slots=3):
@@ -274,10 +274,19 @@ def test_paint_pu_idx_edges_match_jax(seed, L, W):
     np.testing.assert_array_equal(want, exp)
 
 
-def _expand_case(seed, total, B):
+def _expand_case(seed, total, B, case="random", rows=None):
+    """Compact blocks [M, B] (a third of the feed's blocks, or `rows` of
+    them, then two zero padding rows), their forward map idx [M] (padding
+    rows 1 << 30) and the inverse map inv [nb].  case "inv_ge_M": some
+    entries of inv at or above M (zeros; idx then names no row for those
+    blocks); "all_minus1": no output block has a row; "padding_only": the
+    compact rows are all padding (zeros) and no block has a row."""
     rng = np.random.default_rng(seed)
     nb = (total + B - 1) // B
-    keep = np.sort(rng.permutation(nb)[:nb // 3])
+    n = nb // 3 if rows is None else rows - 2
+    keep = np.sort(rng.permutation(nb)[:n])
+    if case == "padding_only":
+        keep = keep[:0]
     M = len(keep) + 2                      # two padding rows
     blocks = rng.integers(-(1 << 31), 1 << 31, (M, B)).astype(np.int32)
     blocks[len(keep):] = 0
@@ -285,12 +294,39 @@ def _expand_case(seed, total, B):
     idx[:len(keep)] = keep
     inv = np.full(nb, -1, np.int32)
     inv[keep] = np.arange(len(keep))
+    if case == "inv_ge_M":
+        # (the Pallas form scales the index by B // 128 in int32: values
+        # near 2**31 would wrap there, so the largest is 1 << 20)
+        for b, r in zip(keep[::4], (M, M + 7, 1 << 20) * nb):
+            idx[inv[b]] = 1 << 30
+            inv[b] = r
+        inv[np.flatnonzero(inv < 0)[::3]] = M
+    elif case == "all_minus1":
+        idx[:] = 1 << 30
+        inv[:] = -1
     return blocks, idx, inv
 
 
-@pytest.mark.parametrize("seed,total,B", [(0, 9000, 256), (1, 4096, 128)])
-def test_expand_blocks_plain_matches_jax(seed, total, B):
-    blocks, idx, inv = _expand_case(seed, total, B)
+EXPAND_CPU = [
+    pytest.param(0, 9000, 256, "random", id="0-9000-256"),
+    pytest.param(1, 4096, 128, "random", id="1-4096-128"),
+    # total % 4 != 0 and total % B != 0: the last block's ragged tail
+    pytest.param(2, 9003, 256, "random", id="ragged-9003-256"),
+    pytest.param(3, 4097, 128, "random", id="ragged-4097-128"),
+    pytest.param(4, 9001, 256, "inv_ge_M", id="inv_ge_M"),
+    pytest.param(5, 9000, 128, "all_minus1", id="all_minus1"),
+    pytest.param(6, 5000, 256, "padding_only", id="padding_only"),
+]
+
+
+@pytest.mark.parametrize("seed,total,B,case", EXPAND_CPU)
+def test_expand_blocks_plain_matches_jax(seed, total, B, case):
+    """The plain version against the Pallas kernel in interpret mode and
+    the XLA scatter form, tolerance 0.  Where inv[b] >= M the Pallas form
+    reads the clamped block index, row M - 1, which is a zero padding row
+    here as in every feed (M is rounded up with zero rows), so all forms
+    give zeros there, as the port's contract says."""
+    blocks, idx, inv = _expand_case(seed, total, B, case)
     want = np.asarray(jfd._expand_blocks_pallas(
         jnp.asarray(blocks), jnp.asarray(inv), total=total, B=B,
         interpret=True))
@@ -444,12 +480,92 @@ def test_residual_stripes_kernel_matches_plain(cuda, lg, OR):  # noqa: F811
           n_bands=H // OR)
 
 
+EXPAND_GPU = [   # seed, total, B, case, compact rows or None, poisoned
+    pytest.param(2, 100000, 1024, "random", None, False, id="100000-1024"),
+    # the 1080p feed: 753 blocks of 1024 words, 512 compact rows
+    pytest.param(3, 771000, 1024, "random", 512, False, id="1080p"),
+    pytest.param(4, 100001, 1024, "random", None, False, id="odd-total"),
+    pytest.param(5, 9003, 128, "random", None, False, id="B128"),
+    pytest.param(6, 9000, 256, "random", None, False, id="B256"),
+    pytest.param(7, 9001, 256, "inv_ge_M", None, False, id="inv_ge_M"),
+    pytest.param(8, 771000, 1024, "random", 512, True, id="1080p-poisoned"),
+]
+
+
 @pytest.mark.gpu
-def test_expand_blocks_kernel_matches_plain(cuda):  # noqa: F811
-    blocks, _, inv = _expand_case(2, 100000, 1024)
-    _same(expand.expand_blocks, expand.expand_blocks_plain,
-          lambda: expand.launches, t32(blocks, cuda), t32(inv, cuda),
-          total=100000, B=1024)
+@pytest.mark.parametrize("seed,total,B,case,rows,poisoned", EXPAND_GPU)
+def test_expand_blocks_kernel_matches_plain(
+        cuda, seed, total, B, case, rows, poisoned):  # noqa: F811
+    """B1 equals its plain version and counts one launch per call;
+    poisoned, its output lands on memory that holds 0x7f7f7f7f, so every
+    word it leaves unwritten shows."""
+    blocks, _, inv = _expand_case(seed, total, B, case, rows)
+    args = (t32(blocks, cuda), t32(inv, cuda))
+    for _ in range(2):
+        if poisoned:
+            poison(total)
+        _same(expand.expand_blocks, expand.expand_blocks_plain,
+              lambda: expand.launches, *args, total=total, B=B)
+
+
+@pytest.mark.gpu
+def test_expand_blocks_rejects_unaligned(cuda):  # noqa: F811
+    """The kernel moves 16 bytes at a time: B not a multiple of 4, or
+    compact blocks that do not start on 16 bytes, raise ValueError and
+    launch nothing."""
+    n0 = expand.launches
+    inv = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        expand.expand_blocks(torch.zeros((1, 6), dtype=torch.int32,
+                                         device=cuda), inv, total=12, B=6)
+    flat = torch.zeros(4 * 128 + 1, dtype=torch.int32, device=cuda)
+    view = flat[1:].view(4, 128)           # 4 bytes past an aligned start
+    with pytest.raises(ValueError):
+        expand.expand_blocks(view, inv, total=256, B=128)
+    assert expand.launches == n0
+
+
+@pytest.mark.gpu
+def test_stream_of_is_the_current_stream(cuda):  # noqa: F811
+    """The wrappers' raw stream lookup gives the cudaStream_t of
+    torch.cuda.current_stream(), on the default stream and on a side
+    stream."""
+    t = torch.zeros(1, device=cuda)
+    assert _tensors.stream_of(t) == \
+        torch.cuda.current_stream(cuda).cuda_stream
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        assert _tensors.stream_of(t) == side.cuda_stream == \
+            torch.cuda.current_stream(cuda).cuda_stream
+    assert _tensors.stream_of(t) != side.cuda_stream
+
+
+def _sparse_feed(rng, nb, B):
+    """A feed of nb blocks of B words, a fifth of them holding data."""
+    buf = np.zeros(nb * B - 5, np.int32)
+    for b in np.flatnonzero(rng.random(nb) < 0.2):
+        buf[b * B:(b + 1) * B] = rng.integers(1, 1 << 20, B)[:len(
+            buf[b * B:(b + 1) * B])]
+    return buf
+
+
+@pytest.mark.gpu
+def test_sparse_upload_slot_reuse(cuda, native_build):  # noqa: F811
+    """Three sparse uploads while the stream is held by a long sleep: the
+    third refills the first's host slot, so it must wait for the first's
+    device work to read the slot; the first feed must equal its host
+    buffer."""
+    fd = tfd.FusedDecoder(device=cuda)
+    rng = np.random.default_rng(8)
+    bufs = [_sparse_feed(rng, 1200, tfd.SPARSE_BLOCK) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)           # some 0.1 s of device time
+    n0 = expand.launches
+    outs = [fd._sparse_upload(b) for b in bufs]
+    assert expand.launches == n0 + 3         # all three went sparse
+    assert fd.last_wire_bytes < bufs[2].size * 4
+    for out, buf in zip(outs, bufs):
+        np.testing.assert_array_equal(out.cpu().numpy(), buf)
 
 
 def _residual_1080p(rng, lg, OR, case):
