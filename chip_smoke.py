@@ -17,9 +17,14 @@ Phases (any failure raises and the script exits non-zero):
        b. a 1920x1088 all-intra GOP (4 frames, intra period 1), decoded
           with PipelinedDecoder(): the intra scan, one persistent kernel
           launch per picture with intra blocks, no fused-step launch;
-     then synced per-picture milliseconds and launches (I and P; B1, B4,
-     B8 and B9 once each in every picture), the synced feed pack, intra
-     scan and deblocking of single pictures, the deblocking, the residual
+     each run with every picture packed by the native feed packer
+     (FeedPacker.pack_native; the packer's counters), then the parse of
+     each stream alone (host ms per picture), the native
+     against the numpy packer's host ms on every picture of both streams
+     (their buffers equal word for word), synced per-picture milliseconds
+     and launches (I and P; B1, B4, B8 and B9 once each in every picture),
+     the synced feed pack (whichever packer ran), intra scan and
+     deblocking of single pictures, the deblocking, the residual
      and the feed upload sections of the first I and P picture alone
      (synced ms, device ms and device operations; the upload also as the
      whole feed), and one all-intra picture under torch.profiler
@@ -28,7 +33,9 @@ Phases (any failure raises and the script exits non-zero):
      the card, on seeded random inputs at the 1080p shapes and on the
      inputs captured from the first I and P picture (the intra kernels on
      the first I picture's whole scan); exact equality; CUDA-event times of
-     both, each kernel's device time (torch.profiler) and bound; B5 timed
+     both, each kernel's device time (torch.profiler, profiled again while
+     it sees no device time, up to five times, else the run fails) and
+     bound; B5 timed
      on the I picture's calls as well (bins with no segment), and B1's,
      B4's, B5's, B2's, B8's and B9's calls checked to run no device work
      besides their kernel; B4 (every size bin of a picture in one call)
@@ -42,7 +49,12 @@ Phases (any failure raises and the script exits non-zero):
      runs B6's gather and B7's store inside the persistent scan;
   5. small streams, bit-exact on the card: 104x72 with CTB 64 (two intra
      sizes per plane, a chroma plane that is not a multiple of 8 wide or
-     high) and a 416x240 B/weighted/2-ref stream under both formulations.
+     high), a 416x240 B/weighted/2-ref stream under both formulations, two
+     4:4:4 streams with cross-component prediction (lossless and lossy,
+     intra and inter pictures; packed by numpy, against the oracle), and
+     two pictures with RDPCM flags injected into their TU records (a
+     lossless picture, and the first 104x72 picture with transform skip
+     on its 4x4 TUs), each equal to the port's decode on the CPU.
 
 The last three lines of stdout are the kernels JSON object (all twelve
 rows: B1-B10, the fused step and the persistent scan), the card's
@@ -53,6 +65,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -264,6 +277,76 @@ def make_conf_window_stream(path: Path):
     return data
 
 
+def staircase(h, w, t, chroma="444"):
+    """An 8x8-block brightness staircase moved 2t samples to the right
+    (the content of the repository's CCP and RDPCM tests at t = 0): luma
+    residuals stay non-negative, where CCP engages.  4:4:4: chroma follows
+    luma; 4:2:0: flat chroma."""
+    y = np.zeros((h, w), int)
+    lvl = 20
+    for by in range(0, h, 8):
+        for bx in range(0, w, 8):
+            lvl += 2 if chroma == "444" else 3
+            y[by:by + 8, bx:bx + 8] = lvl
+    if chroma == "444":
+        planes = (y, 16 + y * 7 // 8, 16 + y * 3 // 4)
+    else:
+        planes = (y, np.full((h // 2, w // 2), 128),
+                  np.full((h // 2, w // 2), 90))
+    return tuple(np.roll(a.clip(0, 255), 2 * t, axis=1).astype(np.uint8)
+                 for a in planes)
+
+
+def make_ccp_stream(path: Path, lossless):
+    """Four 64x64 4:4:4 pictures (staircase), intra period 4, QP 27,
+    cross-component prediction on, lossless or lossy; encoded (or reused)
+    as make_stream does."""
+    if path.exists():
+        return path.read_bytes()
+    from libde265_tpu_torch import Encoder
+    with Encoder(qp=27, chroma_format="444") as enc:
+        if lossless:
+            enc.set_parameter("lossless", True)
+        enc.set_parameter("ccp", True)
+        enc.set_parameter("intra-period", 4)
+        data = b"".join(enc.encode(*staircase(64, 64, t))
+                        for t in range(4)) + enc.finish()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(data)
+    return data
+
+
+def rdpcm_programs(conf_prog):
+    """Two pictures with TU_RDPCM injected into their TU records, without
+    their native source (src = None, so the numpy packer packs the edited
+    records): a lossless 64x64 4:2:0 staircase, every other coded TU
+    flagged (its TUs bypass transform and quantisation), and conf_prog
+    (the first 104x72 picture) with transform skip and RDPCM on its coded
+    4x4 TUs; horizontal and vertical in turn."""
+    import dataclasses
+    from libde265_tpu_torch import Encoder
+    from libde265_tpu_torch.decoder import (TU_RDPCM, TU_RDPCM_VERTICAL,
+                                            TU_TRANSFORM_SKIP)
+    with Encoder(qp=27) as enc:
+        enc.set_parameter("lossless", True)
+        data = enc.encode(*staircase(64, 64, 0, "420")) + enc.finish()
+    _, (prog,) = oracle_programs(data)
+    out = []
+    for name, p, lg, extra in (("lossless 64x64", prog, None, 0),
+                               ("104x72 picture 0, 4x4 transform skip",
+                                conf_prog, 2, TU_TRANSFORM_SKIP)):
+        tus = p.tus.copy()
+        coded = tus["ncoeff"] > 0
+        sel = np.nonzero(coded & (tus["log2_size"] == lg))[0] \
+            if lg else np.nonzero(coded)[0][::2]
+        if len(sel) < 8:
+            raise AssertionError(f"RDPCM {name}: {len(sel)} TUs to flag")
+        tus["flags"][sel] |= TU_RDPCM | extra
+        tus["flags"][sel[1::2]] |= TU_RDPCM_VERTICAL
+        out.append((name, dataclasses.replace(p, tus=tus, src=None)))
+    return out
+
+
 def synthetic_intra(seed, H=128, W=128, bit_depth=8):
     """A seeded synthetic intra scan with all four sizes in shared steps.
 
@@ -432,10 +515,57 @@ def main_path_run(what, data, progs):
     dt = time.perf_counter() - t0
     counts = read_counts()
     assert_bit_exact(outs, progs, what)
-    log(f"{what}: {len(progs)} frames bit-exact; e2e {len(progs) / dt:.4f} "
-        f"fps ({1000 * dt / len(progs):.1f} ms/frame); launches "
-        f"{json.dumps(counts)}")
+    pk = pd.fd.packer
+    if (pk.native_packs, pk.numpy_packs) != (len(progs), 0):
+        raise AssertionError(f"{what}: {pk.native_packs} pictures packed "
+                             f"natively and {pk.numpy_packs} by numpy, of "
+                             f"{len(progs)}")
+    log(f"{what}: {len(progs)} frames bit-exact, all packed natively; e2e "
+        f"{len(progs) / dt:.4f} fps ({1000 * dt / len(progs):.1f} "
+        f"ms/frame); launches {json.dumps(counts)}")
     return counts, dt
+
+
+def parse_ms(data):
+    """Host ms per picture of the native parse alone, as
+    PipelinedDecoder's parse thread runs it (a parse-only Decoder that
+    keeps the programs), over the whole stream."""
+    from libde265_tpu_torch import Decoder
+    dec = Decoder(parse_only=True, keep_programs=True)
+    t0 = time.perf_counter()
+    list(dec.decode_all(data))
+    return 1000 * (time.perf_counter() - t0) / dec.num_programs()
+
+
+def pack_compare(progs):
+    """Host ms of the native packer (pack_native) against the numpy packer
+    (pack, production feed) on each picture: two packers planned up front
+    (the numpy one from the programs without their native source), each
+    picture packed by numpy then natively, as the decoder would (the
+    native packer's state is planned anew for each picture), the two
+    feeds asserted equal word for word.  Returns (native ms, numpy ms,
+    words) per picture."""
+    import dataclasses
+    from libde265_tpu_torch.feed import MAX_REFS, FeedPacker
+    native, numpy_ = FeedPacker(), FeedPacker()
+    native.plan_stream(progs, pallas_mc=True)
+    numpy_.plan_stream([dataclasses.replace(p, src=None) for p in progs],
+                       pallas_mc=True)
+    rows = []
+    for i, p in enumerate(progs):
+        slot_map = {k: k for k in range(min(len(p.ref_pocs), MAX_REFS))}
+        slot_row = np.zeros(3, np.int32)
+        t0 = time.perf_counter()
+        want = numpy_.pack(p, slot_map, slot_row, pallas_mc=True)
+        t1 = time.perf_counter()
+        got = native.pack_native(p, slot_map, slot_row)
+        t2 = time.perf_counter()
+        if got[0] != want[0] or not np.array_equal(got[1], want[1]) or \
+                got[2:] != want[2:]:
+            raise AssertionError(f"picture {i}: the native feed differs "
+                                 f"from the numpy feed")
+        rows.append((1000 * (t2 - t1), 1000 * (t1 - t0), got[1].size))
+    return rows
 
 
 def per_picture(progs):
@@ -485,13 +615,17 @@ def section_ms(progs, idx):
         fd.decode(p)
     spent["upload"] = spent["mc"] = spent["deblock"] = 0.0
     scan, pack = fdm._intra_scan_all, feed.FeedPacker.pack
+    pack_native = feed.FeedPacker.pack_native
     upload, mc = fdm.FusedDecoder._sparse_upload, fdm._mc_section
     deblock = fdm._deblock_section
     fdm._intra_scan_all = timed("intra scan", scan)
+    # "pack" is whichever packer the decoder calls
     feed.FeedPacker.pack = timed("pack", pack)
+    feed.FeedPacker.pack_native = timed("pack", pack_native)
     fdm.FusedDecoder._sparse_upload = timed("upload", upload)
     fdm._mc_section = timed("mc", mc)
     fdm._deblock_section = timed("deblock", deblock)
+    native = fd.packer.native_packs
     try:
         t0 = time.perf_counter()
         fd.decode(progs[idx])
@@ -499,8 +633,11 @@ def section_ms(progs, idx):
         spent["picture"] = 1000 * (time.perf_counter() - t0)
     finally:
         fdm._intra_scan_all, feed.FeedPacker.pack = scan, pack
+        feed.FeedPacker.pack_native = pack_native
         fdm.FusedDecoder._sparse_upload, fdm._mc_section = upload, mc
         fdm._deblock_section = deblock
+    if fd.packer.native_packs != native + 1:
+        raise AssertionError(f"picture {idx} was not packed natively")
     return spent
 
 
@@ -635,6 +772,17 @@ def device_ms(fn, kernel=None):
     us = sum(v for k, v in device_kernels(fn).items()
              if kernel is None or kernel in k)
     return us / 1000 if us > 0 else None
+
+
+def measured_device_ms(fn, what, kernel=None, tries=5):
+    """device_ms(fn, kernel), profiled again while the profiler sees no
+    device time, up to `tries` profiles; raises if it never does."""
+    for _ in range(tries):
+        ms = device_ms(fn, kernel)
+        if ms is not None:
+            return ms
+    raise AssertionError(f"{what}: torch.profiler saw no device time in "
+                         f"{tries} profiles")
 
 
 def _add(a, b):
@@ -1219,7 +1367,8 @@ def time_calls(timed):
             t_k1 = median_ms(lambda: _call(k, name, args, kw))
             t_k2 = median_ms(lambda: _call(k, name, args, kw))
             t_p2 = median_ms(lambda: _call(p, name, args, kw))
-            t_dev = device_ms(lambda: _call(k, name, args, kw))
+            t_dev = measured_device_ms(lambda: _call(k, name, args, kw),
+                                       name)
             out = _call(k, name, args, kw)
             row = ms.setdefault(fam, [0.0, 0.0, 0, 0, 0, 0.0])
             row[5] = _add(row[5], t_dev)
@@ -1258,7 +1407,7 @@ def expand_library_ms(calls):
                                   median_ms(k), median_ms(lib))
         ev += min(t_l1, t_l2)
         kern += min(t_k1, t_k2)
-        dev = _add(dev, device_ms(lib))
+        dev = _add(dev, measured_device_ms(lib, "rows[sel]"))
     return ev, dev, kern
 
 
@@ -1364,7 +1513,7 @@ def compare_intra_trace(trace, err, ncases, ms):
         t_k2 = median_ms(kern, reps=5, warm=0)
         t_p2 = median_ms(plain, reps=1, warm=0)
         ms[fam] = [min(t_k1, t_k2), min(t_p1, t_p2), 0, 0, ncalls,
-                   device_ms(kern, kname)]
+                   measured_device_ms(kern, fam, kname)]
 
     # bytes each function must move on this picture's data.  A (step, bin)
     # of the scan or the fused step reads every slot's meta, the valid
@@ -1458,6 +1607,22 @@ def main():
     log(f"intra scan launches {counts[SCAN]} over {n_pics} pictures ({n_i} "
         f"I, the rest P with or without intra blocks); fused step launches "
         f"{counts[STEP]}")
+
+    # the parse alone, against the pipelined decode's ms per picture
+    for (counts_, dt), what, d, pp in zip(runs, ("P-GOP", "all-intra"),
+                                          (data, idata), (progs, iprogs)):
+        log(f"parse alone of the 1080p {what}: {parse_ms(d):.2f} ms per "
+            f"picture (host, one parse-only pass), against "
+            f"{1000 * dt / len(pp):.2f} ms per picture end to end "
+            f"(PipelinedDecoder); {os.cpu_count()} host cores on {smi}")
+
+    # the native against the numpy packer, picture by picture
+    for what, pp in (("P-GOP", progs), ("all-intra", iprogs)):
+        for i, (nat_ms, np_ms, words) in enumerate(pack_compare(pp)):
+            kind = "P" if len(pp[i].pus) else "I"
+            log(f"pack of 1080p {what} picture {i} ({kind}): native "
+                f"{nat_ms:.2f} ms, numpy {np_ms:.2f} ms (host; {words} "
+                f"words, equal) on {smi}")
 
     # per-picture synced times, launches and upload bytes (I/P split)
     for what, pp in (("P-GOP", progs), ("all-intra", iprogs)):
@@ -1643,6 +1808,47 @@ def main():
             raise AssertionError(f"416x240 ({what}): {c[B3]} B3 launches")
         log(f"416x240 B/weighted/2-ref, {what}: {len(bprogs)} frames "
             f"bit-exact ({n_bi} bi-predicted PUs); launches {json.dumps(c)}")
+
+    # cross-component prediction: 4:4:4, intra and inter pictures, packed
+    # by numpy (the only packer with the CCP fields)
+    for lossless in (True, False):
+        what = "lossless" if lossless else "lossy"
+        ccp = make_ccp_stream(BUILD / "chip_smoke" / f"ccp444_{what}.h265",
+                              lossless)
+        _, pprogs = oracle_programs(ccp)
+        scaled = [int((p.tus["cross_comp_scale"] != 0).sum())
+                  for p in pprogs]
+        if not all(scaled[:2]) or not any(len(p.pus) for p in pprogs):
+            raise AssertionError(f"CCP {what}: CCP TUs per picture "
+                                 f"{scaled}")
+        pd = lt.PipelinedDecoder()
+        pouts = pd.decode_stream(ccp)
+        torch.cuda.synchronize()
+        assert_bit_exact(pouts, pprogs, f"CCP 4:4:4 {what}")
+        pk = pd.fd.packer
+        if not pk.has_ccp or pk.numpy_packs != len(pprogs):
+            raise AssertionError(f"CCP {what}: {pk.numpy_packs} numpy packs "
+                                 f"of {len(pprogs)}")
+        log(f"64x64 4:4:4 CCP ({what}, QP 27): {len(pprogs)} frames "
+            f"bit-exact, packed by numpy; CCP TUs per picture {scaled}")
+
+    # RDPCM, injected: the card against the port's CPU decode
+    for what, prog in rdpcm_programs(cprogs[0]):
+        got = {}
+        for device in ("cuda", "cpu"):
+            fd = lt.FusedDecoder(device=device)
+            fd.use_pallas_mc = True
+            got[device] = [q.cpu().numpy() for q in fd.decode(prog)]
+            if not fd.packer.has_rdpcm or fd.packer.numpy_packs != 1:
+                raise AssertionError(f"RDPCM {what}: not latched")
+        for c, (a, b) in enumerate(zip(got["cuda"], got["cpu"])):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"RDPCM {what}: plane {c} differs "
+                                     f"between the card and the CPU")
+        if all(np.array_equal(a, q) for a, q in zip(got["cuda"],
+                                                    prog.planes)):
+            raise AssertionError(f"RDPCM {what}: the flags changed nothing")
+        log(f"RDPCM injected, {what}: the card equals the CPU decode")
 
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "libde265_tpu") or

@@ -11,21 +11,29 @@ DPB ring slot, the halfword grid ``g4`` and the ring rows ``slot_row``),
 else the ``use_pallas_mc=False`` feed.  For the same sequence of pictures
 it returns the same ``(layout, buf)`` word for word as the JAX packer,
 capacity watermarks included; ``tests/test_torch_feed.py`` holds the two
-against each other.
+against each other.  With cross-component prediction latched, both
+formulations ship each bin's CCP partner rows and scales.
 
-Cross-component prediction is not packed: the port's decoder refuses such
-pictures before packing (ROADMAP A2).
+``FeedPacker.pack_native`` builds the production feed in C++
+(``native/src/feedpack.cc``, through ``tde265_pack_caps`` and
+``tde265_pack_feed``) from the program's live native source, word for
+word the feed of ``pack(..., pallas_mc=True)``
+(``tests/test_torch_native_pack.py``).  It carries no CCP fields, so the
+decoder uses it only while no CCP has been seen in the stream.
 """
 from __future__ import annotations
 
+import ctypes as ct
+
 import numpy as np
 
-from .decoder import TU_INTRA, TU_RDPCM, FrameProgramData
+from .decoder import OP_RESIDUAL, TU_INTRA, TU_RDPCM, FrameProgramData
 from .ops import mc_seg
 from .ops.mc_seg import pus_to_wire  # noqa: F401  (re-exported)
 
 MAX_REFS = 8
 NOREF = -(10 ** 6)
+RING_SLOTS = 2 * MAX_REFS + 1   # DPB ring slots; slot 2*MAX_REFS is gray
 
 # intra super-wave per-step capacities (blocks of size 1<<lg per scan step);
 # MUST match kWaveCap in native/src/intraplan.cc.
@@ -64,6 +72,26 @@ def _bin_tus(prog: FrameProgramData):
     tu_bin_row = np.full(len(tus), -1, np.int32)
     if len(tus) == 0:
         return bins, tu_bin_lg, tu_bin_row
+
+    # cross-component prediction pairing: each scaled chroma TU takes the
+    # most recent luma TU in OP_RESIDUAL order, when it has the same size
+    # (4:4:4, the same geometry)
+    tu_ccp_scale = np.zeros(len(tus), np.int32)
+    tu_ccp_partner = np.full(len(tus), -1, np.int64)
+    if (tus["cross_comp_scale"] != 0).any():
+        ridx = prog.ops["idx"][prog.ops["kind"] == OP_RESIDUAL] \
+            .astype(np.int64)
+        is_l = tus["cidx"][ridx] == 0
+        pos = np.where(is_l, np.arange(len(ridx)), -1)
+        last = np.maximum.accumulate(pos)
+        sel = (tus["cidx"][ridx] != 0) & \
+              (tus["cross_comp_scale"][ridx] != 0) & (last >= 0)
+        tt = ridx[sel]
+        pp = ridx[np.clip(last, 0, None)][sel]
+        same = tus["log2_size"][tt] == tus["log2_size"][pp]
+        tt, pp = tt[same], pp[same]
+        tu_ccp_scale[tt] = tus["cross_comp_scale"][tt]
+        tu_ccp_partner[tt] = pp
 
     for lg in (2, 3, 4, 5):
         sel = np.nonzero(tus["log2_size"] == lg)[0]
@@ -128,8 +156,14 @@ def _bin_tus(prog: FrameProgramData):
             mid = np.zeros(n, np.int32)
         b = {"qp": t["qp"].astype(np.int32), "flags": flags, "mid": mid,
              "n": n, "cv": cv, "coff": coff, "cfx": cfx, "cfv": cfv}
-        # inter residual scatter targets per channel
-        inter_nz = ~intra & (t["ncoeff"] > 0)
+        # the partner's row in this bin (-1: no CCP term)
+        b["ccp_scale"] = tu_ccp_scale[sel]
+        ppr = tu_ccp_partner[sel]
+        b["ccp_row"] = np.where(
+            ppr >= 0, tu_bin_row[np.clip(ppr, 0, None)], -1).astype(np.int32)
+        # inter residual scatter targets per channel; a chroma TU whose own
+        # cbf is 0 still scatters when it carries a CCP luma term
+        inter_nz = ~intra & ((t["ncoeff"] > 0) | (b["ccp_scale"] != 0))
         for ch, m in (("y", inter_nz & (cidx == 0)),
                       ("cb", inter_nz & (cidx == 1)),
                       ("cr", inter_nz & (cidx == 2))):
@@ -264,6 +298,40 @@ def has_rdpcm(prog: FrameProgramData) -> bool:
     return bool(len(prog.tus) and ((prog.tus["flags"] & TU_RDPCM) != 0).any())
 
 
+def _check_pu_index(prog: FrameProgramData):
+    """The segment words carry 16-bit PU indices (two per word): raise the
+    ValueError of mc_seg.plan_segment_indices for a picture with more
+    than 65536 PUs, before any native call packs a wrapped index."""
+    if len(prog.pus) > 0x10000:
+        raise ValueError(
+            f"pack_native: {len(prog.pus)} PUs in the picture; PU "
+            f"{len(prog.pus) - 1} does not fit the segment words' 16-bit "
+            f"index (at most 65536 PUs)")
+
+
+def native_live(prog: FrameProgramData) -> bool:
+    """Whether prog has a live native source (its decoder not freed)."""
+    src = getattr(prog, "src", None)
+    return src is not None and getattr(src[0], "_ctx", None) is not None
+
+
+# the native packer's entry keys (enum PackKey of native/src/feedpack.cc)
+_KEY = {"tm": 0, "cv": 3, "coff": 4, "cfx": 5, "rs.n": 6, "rs.sw": 7,
+        "cfv": 8, "sgn": 9, "sgi": 12, "irecp": 17, "nsteps": 18, "pcm": 19,
+        "slice_recs": 20, "pu": 21, "g4": 23, "slice_idx": 27,
+        "slice_addr": 28, "tile_id": 30, "sao_t": 31, "sao_eo": 32,
+        "sao_band": 33, "sao_off": 34}
+
+# The 64-word caps record of tde265_pack_caps:
+#   [0..3] TUs per lg, [4..7] coefficient words per lg,
+#   [8..19] inter residual targets per (lg, plane), [20..31] residual band
+#   segments K per (lg, plane), [32..33] MC segments K per list,
+#   [34] intra blocks, [35] scan steps, [36..38] steps per plane,
+#   [39..41] PCM samples per plane, [42] use_l1, [43] has_inter,
+#   [44] slices, [45..48] most entries of a TU per lg (unused here),
+#   [49..52] escape corrections per lg.
+
+
 def _multi_boundary(prog: FrameProgramData) -> bool:
     srec = prog.slice_records
     return bool((len(srec) > 1 and not np.all(srec[:, 9])) or
@@ -294,6 +362,14 @@ class FeedPacker:
         self.use_l1 = False
         self.has_inter = False
         self.multi = False
+        # stream-level RExt features (note_rext): the program variant, and
+        # with has_ccp the numpy packer (the only one with the CCP fields)
+        self.has_ccp = False
+        self.has_rdpcm = False
+        # pictures packed by pack_native and by pack
+        self.native_packs = 0
+        self.numpy_packs = 0
+        self._layout_cache = None   # pack_native's (signature, layout)
 
     def grow(self, key, n):
         if n > self.caps.get(key, 0):
@@ -310,13 +386,27 @@ class FeedPacker:
             bool((prog.pus["pred_flags"] & 2).any()) if len(prog.pus)
             else False)
 
+    def note_rext(self, prog):
+        """Latch the stream-level RExt features of prog (sticky)."""
+        self.has_ccp = self.has_ccp or has_ccp(prog)
+        self.has_rdpcm = self.has_rdpcm or has_rdpcm(prog)
+
     def plan_stream(self, progs, pallas_mc=False):
         """Pre-size every capacity from a list of pictures, so the whole
         stream packs into one layout (pallas_mc: the production feed's
-        segment and residual band watermarks too)."""
+        segment and residual band watermarks too, from the native caps
+        record while the picture has a live native source and no CCP is
+        latched)."""
         for prog in progs:
             if len(prog.ref_pocs) > MAX_REFS:
                 continue
+            self.note_rext(prog)
+            if pallas_mc and not self.has_ccp:
+                _check_pu_index(prog)
+                caps = self.native_caps(prog)
+                if caps is not None:
+                    self.plan_from_caps(prog, caps)
+                    continue
             bins, _, _ = _bin_tus(prog)
             sub_y0 = prog.height // prog.chroma_height \
                 if prog.chroma_height else 1
@@ -425,6 +515,11 @@ class FeedPacker:
                     b["cfx"] if b else z0, fcap, fill=-1)
                 host[f"bin{lg}.cfv"] = _pad_rows(b["cfv"] if b else z0,
                                                  fcap)
+            if self.has_ccp:
+                host[f"bin{lg}.ccp_row"] = _pad_rows(
+                    b["ccp_row"] if b else z0, tcap, fill=-1)
+                host[f"bin{lg}.ccp_scale"] = _pad_rows(
+                    b["ccp_scale"] if b else z0, tcap)
             for c, ch in enumerate(("y", "cb", "cr")):
                 sc = b[f"sc_{ch}"] if b else np.zeros((0, 3), np.int32)
                 cap = self.grow(f"sc{lg}{ch}", len(sc))
@@ -462,6 +557,9 @@ class FeedPacker:
                 host[f"bin{lg}.mid"] = _pad_rows(z0, tcap)
                 host[f"bin{lg}.cv"] = _pad_rows(z0, ccap)
                 host[f"bin{lg}.coff"] = np.zeros(tcap + 1, np.int32)
+                if self.has_ccp:
+                    host[f"bin{lg}.ccp_row"] = _pad_rows(z0, tcap, fill=-1)
+                    host[f"bin{lg}.ccp_scale"] = _pad_rows(z0, tcap)
                 for ch in ("y", "cb", "cr"):
                     cap = self.grow(f"sc{lg}{ch}", 0) or 0
                     if not pallas_mc:
@@ -552,4 +650,194 @@ class FeedPacker:
         for (k, off, shp) in layout:
             a = host[k]
             buf[off:off + a.size] = a.ravel()
+        self.numpy_packs += 1
         return tuple(layout), buf, lgs, n_slices
+
+    # -- the native packer (native/src/feedpack.cc) --
+
+    def native_caps(self, prog: FrameProgramData):
+        """The 64-word caps record of prog from tde265_pack_caps, or None
+        when prog has no live native source.  The call also plans the
+        picture into the native packer's one-entry cache, which the
+        tde265_pack_feed call of the same picture reads: keep the two back
+        to back on one thread.  Raises RuntimeError with the return code
+        when the native side rejects the picture."""
+        if not native_live(prog):
+            return None
+        dec, idx = prog.src
+        caps = np.zeros(64, np.int32)
+        rc = dec._lib.tde265_pack_caps(dec._ctx, idx,
+                                       caps.ctypes.data_as(ct.c_void_p))
+        if rc != 0:
+            raise RuntimeError(f"tde265_pack_caps: program {idx}: return "
+                               f"code {rc}")
+        return caps
+
+    def plan_from_caps(self, prog: FrameProgramData, caps):
+        """plan_stream's growth for one picture of the production feed,
+        from its caps record (the watermarks the numpy planning gives)."""
+        for lg in (2, 3, 4, 5):
+            i = lg - 2
+            n_tu = int(caps[i])
+            if n_tu == 0:
+                continue
+            self.grow(f"tu{lg}", n_tu)
+            self.grow(f"co{lg}", int(caps[4 + i]))
+            self.grow(f"cf{lg}", int(caps[49 + i]))
+            for c, ch in enumerate(("y", "cb", "cr")):
+                scn = int(caps[8 + i * 3 + c])
+                self.grow(f"sc{lg}{ch}", scn)
+                if scn:
+                    self.grow(f"rk{lg}{ch}", int(caps[20 + i * 3 + c]))
+        self.grow("pu", len(prog.pus))
+        self.grow("slices", len(prog.slice_records))
+        self.use_l1 = self.use_l1 or bool(caps[42])
+        self.has_inter = self.has_inter or bool(caps[43])
+        self.multi = self.multi or _multi_boundary(prog)
+        if int(caps[34]):
+            self._note_intra_lgs(prog)
+        self.grow("steps", int(caps[35]))
+        self.grow("nintra", int(caps[34]))
+        for c in range(3):
+            self.grow(f"pcm{c}", int(caps[39 + c]))
+        if len(prog.pus):
+            for l in (0, 1):
+                self.grow("segk", int(caps[32 + l]))
+
+    def pack_native(self, prog: FrameProgramData, slot_map, slot_row):
+        """pack(prog, slot_map, slot_row, pallas_mc=True) built by the
+        native packer from prog's live native source: the same
+        (layout, buf, lgs, n_slices), watermarks and latches.  The layout
+        is cached on the watermarks it depends on.  Raises ValueError for
+        more than 65536 PUs (before any native call) or without a live
+        source, RuntimeError when the native side fails."""
+        _check_pu_index(prog)
+        caps = self.native_caps(prog)
+        if caps is None:
+            raise ValueError("pack_native: the program has no live native "
+                             "source (prog.src)")
+        n_bands = (prog.height + 3) // 4
+
+        # watermark growth, as pack grows them
+        for lg in (2, 3, 4, 5):
+            i = lg - 2
+            n_tu, n_co = int(caps[i]), int(caps[4 + i])
+            if n_tu or self.caps[f"tu{lg}"]:
+                self.grow(f"tu{lg}", max(n_tu, 1))
+                self.grow(f"co{lg}", max(n_co, 1))
+                self.grow(f"cf{lg}", int(caps[49 + i]))
+            for c, ch in enumerate(("y", "cb", "cr")):
+                if self.grow(f"sc{lg}{ch}", int(caps[8 + i * 3 + c])):
+                    self.grow(f"rk{lg}{ch}", int(caps[20 + i * 3 + c]))
+        self.grow("pu", max(len(prog.pus), 1))
+        self.use_l1 = self.use_l1 or bool(caps[42])
+        lists = (0, 1) if self.use_l1 else (0,)
+        for l in lists:
+            self.grow("segk", max(int(caps[32 + l]), 1))
+        n_steps = int(caps[35])
+        self.caps["steps"] = max(self.caps["steps"],
+                                 _pow2(n_steps) if n_steps else 0)
+        self.grow("nintra", max(int(caps[34]), 1))
+        for c in range(3):
+            self.grow(f"pcm{c}", int(caps[39 + c]))
+        n_slices = self.grow("slices", max(int(caps[44]), 1))
+        if int(caps[34]):
+            self._note_intra_lgs(prog)
+        for (_, lg) in self.intra_lgs:
+            if self.caps[f"tu{lg}"] == 0:
+                self.grow(f"tu{lg}", 1)
+                self.grow(f"co{lg}", 1)
+        lgs = [lg for lg in (2, 3, 4, 5) if self.caps[f"tu{lg}"] > 0]
+
+        sig = (tuple(sorted(self.caps.items())), lists,
+               tuple(prog.pu_idx.shape), (prog.ctb_h, prog.ctb_w), n_bands,
+               n_slices, tuple(sorted(self.intra_lgs)), self.has_ccp)
+        if self._layout_cache is None or self._layout_cache[0] != sig:
+            self._layout_cache = (sig, self._native_layout(
+                prog, lgs, lists, n_bands, n_slices))
+        layout, entries, total = self._layout_cache[1]
+        aux = np.zeros(25, np.int32)    # ref index -> ring slot, twice
+        for k, v in slot_map.items():
+            aux[k + 1] = v
+        for i in range(MAX_REFS):
+            aux[17 + i] = slot_map.get(i, 0)
+        buf = np.empty(max(total, 1), np.int32)
+        dec, idx = prog.src
+        rc = dec._lib.tde265_pack_feed(
+            dec._ctx, idx, entries.ctypes.data_as(ct.c_void_p),
+            len(entries), aux.ctypes.data_as(ct.c_void_p),
+            buf.ctypes.data_as(ct.c_void_p), total)
+        if rc != 0:
+            raise RuntimeError(f"tde265_pack_feed: program {idx}: return "
+                               f"code {rc}")
+        # the fields filled here: POCs by ring slot, the MC gate, the rows
+        # of the picture's own ring slot
+        fields = {k: (off, shp) for k, off, shp in layout}
+        off = fields["ref_pocs"][0]
+        buf[off:off + RING_SLOTS] = NOREF
+        for i, poc in enumerate(prog.ref_pocs[:MAX_REFS]):
+            buf[off + slot_map.get(i, 2 * MAX_REFS)] = poc
+        buf[fields["mc_on"][0]] = 1 if len(prog.pus) else 0
+        off = fields["slot_row"][0]
+        buf[off:off + 3] = slot_row
+        self.native_packs += 1
+        return layout, buf, lgs, n_slices
+
+    def _native_layout(self, prog, lgs, lists, n_bands, n_slices):
+        """(layout, entries [n, 8] int32, total words) of the production
+        feed under the current watermarks: every field of pack's layout,
+        an entry {key, p0, p1, offset, shape[:4]} for each field that the
+        native packer fills."""
+        shapes, ids = {}, {}
+
+        def ent(key, kid, p0, p1, shape):
+            shapes[key] = shape
+            ids[key] = (_KEY[kid], p0, p1)
+
+        for lg in lgs:
+            tcap, ccap = self.caps[f"tu{lg}"], self.caps[f"co{lg}"]
+            ent(f"bin{lg}.tm", "tm", lg, 0, ((tcap + 1) // 2,))
+            ent(f"bin{lg}.cv", "cv", lg, 0, (ccap,))
+            ent(f"bin{lg}.coff", "coff", lg, 0, (tcap + 1,))
+            fcap = self.caps[f"cf{lg}"]
+            if fcap:
+                ent(f"bin{lg}.cfx", "cfx", lg, 0, (fcap,))
+                ent(f"bin{lg}.cfv", "cfv", lg, 0, (fcap,))
+            for c, ch in enumerate(("y", "cb", "cr")):
+                if self.caps[f"sc{lg}{ch}"]:
+                    kcap = self.caps.get(f"rk{lg}{ch}", 1) or 1
+                    ent(f"rs{lg}{ch}.n", "rs.n", lg, c, (n_bands,))
+                    ent(f"rs{lg}{ch}.sw", "rs.sw", lg, c, (n_bands, kcap))
+        segk = self.caps["segk"] or 1
+        for l in lists:
+            ent(f"sg{l}n", "sgn", l, 0, (n_bands,))
+            ent(f"sg{l}i", "sgi", l, 0, (n_bands, (segk + 1) // 2))
+        ent("irecp", "irecp", 0, 0, (8, self.caps["nintra"]))
+        ent("nsteps", "nsteps", 0, 0, (3,))
+        for c in range(3):
+            ent(f"pcm{c}", "pcm", c, 0, (self.caps[f"pcm{c}"], 2))
+        ent("slice_recs", "slice_recs", 0, 0, (n_slices, 208))
+        ent("pu", "pu", 0, 0, (self.caps["pu"], 5))
+        pb = tuple(prog.pu_idx.shape)
+        # p1 = 2: the halfword grid, pu_idx painted on the device (B2)
+        ent("g4", "g4", 0, 2, (pb[0], (pb[1] + 1) // 2))
+        sh = (prog.ctb_h, prog.ctb_w)
+        for k in ("slice_idx", "slice_addr", "tile_id"):
+            ent(k, k, 0, 0, sh)
+        for k in ("sao_t", "sao_eo", "sao_band"):
+            ent(k, k, 0, 0, (*sh, 3))
+        ent("sao_off", "sao_off", 0, 0, (*sh, 3, 4))
+        shapes["ref_pocs"] = (RING_SLOTS,)
+        shapes["mc_on"] = (1,)
+        shapes["slot_row"] = (3,)
+
+        layout, entries, total = [], [], 0
+        for k in sorted(shapes):
+            shp = tuple(shapes[k])
+            layout.append((k, total, shp))
+            if k in ids:
+                row = [*ids[k], total, 0, 0, 0, 0]
+                row[4:4 + min(len(shp), 4)] = shp[:4]
+                entries.append(row)
+            total += int(np.prod(shp, dtype=np.int64))
+        return tuple(layout), np.array(entries, np.int32), total

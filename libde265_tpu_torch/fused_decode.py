@@ -34,9 +34,14 @@ scatter writes (``mode="drop"``), and the feed relies on that with its
 sentinel pads.  Here every such index is clamped or redirected to a
 trailing scratch element explicitly.
 
-Not in this port yet (each raises NotImplementedError): pictures with more
-than MAX_REFS references (ROADMAP A), cross-component prediction and RDPCM
-(ROADMAP A).
+The production formulation packs its feed with the native packer
+(``FeedPacker.pack_native``) while the picture has a live native source
+and no cross-component prediction has been seen in the stream, else with
+the numpy packer (``FeedPacker.pack``), the only one that ships the CCP
+fields.  Cross-component prediction and RDPCM run in the residual section.
+
+Not in this port yet (raises NotImplementedError): pictures with more than
+MAX_REFS references (ROADMAP A).
 """
 from __future__ import annotations
 
@@ -47,11 +52,12 @@ import torch
 
 from . import _native
 
-from .decoder import (TU_TQ_BYPASS, TU_TRANSFORM_SKIP, TU_USE_DST,
-                      FrameProgramData)
+from .decoder import (TU_RDPCM, TU_RDPCM_VERTICAL, TU_TQ_BYPASS,
+                      TU_TRANSFORM_SKIP, TU_USE_DST, FrameProgramData)
 
 from . import feed as fdp
-from .feed import AVAIL_WORDS, MAX_REFS, NOREF, WAVE_CAP, FeedPacker
+from .feed import (AVAIL_WORDS, MAX_REFS, NOREF, RING_SLOTS, WAVE_CAP,
+                   FeedPacker)
 from .frame_helpers import (_cells_to_plane, _chroma_qp_map,
                             _edge_params_jnp, _mc_plane, _merge)
 from .ops import coef_cuda, deblock_cuda, expand, intra_cuda, mc_seg, sao_cuda
@@ -63,7 +69,6 @@ from .ops.mc import EPEL_FILTERS, QPEL_FILTERS
 from .ops.sao import EO_D
 
 _PC_OF = {v: k for k, v in fdp._PLANE_CLASS.items()}
-RING_SLOTS = 2 * MAX_REFS + 1   # slot 2*MAX_REFS stays gray
 SPARSE_BLOCK = 1024             # words per block of the sparse upload
 SPARSE_ROUND = 256              # its block count is rounded up to this
 
@@ -215,15 +220,8 @@ def _compiled_impl(refs_y, refs_cb, refs_cr, buf, sf_tables, st, layout,
 # the frame program
 # ---------------------------------------------------------------------------
 
-def _check_config(st):
-    if st.get("has_ccp") or st.get("has_rdpcm"):
-        raise NotImplementedError(
-            "cross-component prediction and RDPCM (ROADMAP A2)")
-
-
 def _frame_fn(refs_y, refs_cb, refs_cr, feed, sf_tables, st, host):
     """One picture: returns the decoded planes (Y[, Cb, Cr]) as int32."""
-    _check_config(st)
     dev = feed["pu"].device
     H, W = st["H"], st["W"]
     sub_x, sub_y = st["sub_x"], st["sub_y"]
@@ -358,11 +356,43 @@ def _add_escapes(buf, off: int, n: int, cfx, cfv):
     buf.index_add_(0, torch.where(ok, cfx + off, buf.shape[0] - 1), cfv)
 
 
+def ccp_add(res, rows, scale, bd: int, bdc: int):
+    """Cross-component prediction of one bin: res [N, S, S] int32 with
+    res[i] += (scale[i] * ((res[rows[i]] << bdc) >> bd)) >> 3 wherever
+    rows[i] >= 0 (the partner luma TU's row in the bin).  As the reference
+    decoder computes it: the shifts are logical on uint32 and the product
+    wraps at 32 bits, then the arithmetic >> 3 of its int32 value.  Done
+    in int64 with the low 32 bits masked, as torch.uint32 has no shifts or
+    products on every build."""
+    r_y = res[rows.long().clamp(min=0)].long()
+    term = (((r_y & 0xFFFFFFFF) << bdc) & 0xFFFFFFFF) >> bd
+    # scale is in [-8, 8]: its signed product has the uint32 product's low
+    # 32 bits and does not overflow int64
+    prod = (scale.long()[:, None, None] * term) & 0xFFFFFFFF
+    prod = torch.where(prod >= 1 << 31, prod - (1 << 32), prod)
+    out = (res.long() + (prod >> 3)).to(torch.int32)
+    return torch.where((rows >= 0)[:, None, None], out, res)
+
+
+def _rdpcm(base, flags, tskip, bypass):
+    """RDPCM of one bin: the residual of a TU flagged TU_RDPCM with
+    transform skip or bypass becomes its prefix sums down the columns
+    (TU_RDPCM_VERTICAL) or along the rows."""
+    rd = ((flags & TU_RDPCM) != 0) & (tskip | bypass)
+    vert = (flags & TU_RDPCM_VERTICAL) != 0
+    cs = torch.where(vert[:, None, None],
+                     torch.cumsum(base, 1, dtype=torch.int32),
+                     torch.cumsum(base, 2, dtype=torch.int32))
+    return torch.where(rd[:, None, None], cs, base)
+
+
 def _residual_section(feed, sf_tables, st):
     """Residuals of every TU size bin of a picture: {lg: [N, S, S] int32},
     the levels themselves where a TU bypasses transform and quantisation.
     B4 densifies all bins in one launch into one buffer, the escape
-    corrections add into it in place, then dequant + inverse transform."""
+    corrections add into it in place, then dequant + inverse transform,
+    RDPCM (st["has_rdpcm"]) and cross-component prediction
+    (st["has_ccp"])."""
     lgs = st["lgs"]
     if not lgs:
         return {}
@@ -387,7 +417,16 @@ def _residual_section(feed, sf_tables, st):
         else:
             res = tx.residual_batch(levels, tx.qp_to_fact(bf["qp"]), tskip,
                                     use_dst, lg, bd)
-        bin_res[lg] = torch.where(bypass[:, None, None], levels, res)
+        base = torch.where(bypass[:, None, None], levels, res)
+        if st.get("has_rdpcm"):
+            base = _rdpcm(base, flags, tskip, bypass)
+        bin_res[lg] = base
+    if st.get("has_ccp"):
+        # the partners are luma TUs of the same bin, which CCP leaves as
+        # they are, so the bins take their terms in any order
+        for lg, bf in zip(lgs, bfs):
+            bin_res[lg] = ccp_add(bin_res[lg], bf["ccp_row"],
+                                  bf["ccp_scale"], bd, st["bdc"])
     return bin_res
 
 
@@ -963,10 +1002,9 @@ class FusedDecoder:
         if len(prog.ref_pocs) > MAX_REFS:
             raise NotImplementedError(
                 f"{len(prog.ref_pocs)} references > MAX_REFS={MAX_REFS}: "
-                "needs pipeline.reconstruct and MAX_REFS 16 (ROADMAP A8)")
-        if fdp.has_ccp(prog) or fdp.has_rdpcm(prog):
-            raise NotImplementedError(
-                "cross-component prediction and RDPCM (ROADMAP A2)")
+                "needs pipeline.reconstruct and MAX_REFS 16 (ROADMAP A5)")
+        pk = self.packer
+        pk.note_rext(prog)
         H, W = prog.height, prog.width
         has_chroma = prog.chroma_width > 0
         sub_x = W // prog.chroma_width if has_chroma else 1
@@ -983,9 +1021,12 @@ class FusedDecoder:
             slot = self._alloc_slot(prog.poc)
             slot_row = np.array([slot * self._stack_dims[c][0]
                                  for c in range(3)], np.int32)
-        pk = self.packer
-        layout, buf, lgs, n_slices = pk.pack(prog, slot_map, slot_row,
-                                             pallas_mc=pallas)
+        if pallas and not pk.has_ccp and fdp.native_live(prog):
+            layout, buf, lgs, n_slices = pk.pack_native(prog, slot_map,
+                                                        slot_row)
+        else:
+            layout, buf, lgs, n_slices = pk.pack(prog, slot_map, slot_row,
+                                                 pallas_mc=pallas)
 
         sft = None
         if prog.scaling_factors is not None:
@@ -1021,6 +1062,8 @@ class FusedDecoder:
             "segk": pk.caps["segk"] or 1,
             "fuse_store": pallas,
             "g4_half": pallas,
+            "has_ccp": pk.has_ccp,
+            "has_rdpcm": pk.has_rdpcm,
         }
         if not pallas:
             dbuf = torch.from_numpy(buf).to(self.device)

@@ -113,6 +113,12 @@ def ensure_corpus() -> Path:
 _native.build_tree()
 ensure_corpus()
 
+# The port's CPU tests run small tensors, on which torch's intra-op threads
+# mostly wait: one thread runs tests/test_torch_corpus.py in 43 s where
+# eight take 58 s and seven times the CPU time on an 8-core host, and
+# under xdist it leaves the cores to the other workers.
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def cuda():

@@ -9,10 +9,13 @@ ensure_corpus), so its manifest is read here at collection; this file
 reads the checkout's own copy (OWN_CORPUS), the packer's test the copy in
 /tmp that other checkouts share.  The "nocrash"
 mutants are left out: their names depend on which decoders built them.
-The two streams with cross-component prediction raise the port's
-NotImplementedError (ROADMAP A, item 4).  The two largest streams,
-level_edge_64x8192 and level_edge_8192x64 (about 30 s of the file's 110 s
-on a CPU), are left out here to keep the file near 80 s.
+Every picture is packed by the native packer (FeedPacker.pack_native),
+except in the two streams with cross-component prediction: plan_stream
+latches CCP, and their pictures go to the numpy packer (the packer's
+counters say which ran).  Those two decode exactly as the others do.
+The two largest streams, level_edge_64x8192 and level_edge_8192x64
+(about 30 s of the file's 110 s on a CPU), are left out here to keep the
+file near 80 s.
 
 On a CUDA card (the `gpu` test) FusedDecoder() decodes every exact stream,
 both level_edge ones included, with the hand-written kernels: 4:2:2 and
@@ -57,16 +60,13 @@ def test_corpus_ready_at_collection():
 
 def _decode_exact(fd, name):
     """Every frame of the corpus stream through fd (production
-    formulation), every plane equal to the oracle's; the CCP streams
-    raise."""
+    formulation), every plane equal to the oracle's; every picture packed
+    natively, or by numpy in a stream with CCP."""
     _, progs = programs((OWN_CORPUS / f"{name}.h265").read_bytes())
     assert progs
-    fd.plan_stream(progs)
-    if name in CCP:
-        with pytest.raises(NotImplementedError, match="A2"):
-            for p in progs:
-                fd.decode(p)
-        return
+    ccp = any((p.tus["cross_comp_scale"] != 0).any() for p in progs)
+    assert ccp == (name in CCP)
+    fd.plan_stream(progs)       # latches CCP before the first picture
     for i, p in enumerate(progs):
         planes = fd.decode(p)
         want = [q for q in p.planes if q is not None]     # 4:0:0: luma only
@@ -75,6 +75,10 @@ def _decode_exact(fd, name):
             np.testing.assert_array_equal(got.cpu().numpy(), w,
                                           err_msg=f"{name} frame {i} "
                                                   f"plane {c}")
+    pk = fd.packer
+    n_native = 0 if ccp else len(progs)
+    assert (pk.native_packs, pk.numpy_packs) == \
+        (n_native, len(progs) - n_native)
 
 
 @pytest.mark.parametrize("name", EXACT)

@@ -26,7 +26,7 @@ import torch
 
 from libde265_tpu import Encoder
 from libde265_tpu import fused_decode as jfd
-from libde265_tpu.decoder import TU_RDPCM
+from libde265_tpu.decoder import TU_RDPCM, TU_TQ_BYPASS, TU_TRANSFORM_SKIP
 
 from libde265_tpu_torch import FusedDecoder, PipelinedDecoder
 from libde265_tpu_torch import fused_decode as tfd
@@ -163,21 +163,29 @@ def test_seek_decode_from_reference_planes(native_build):
 
 
 def test_unported_paths_raise(native_build):
+    """More than MAX_REFS references still raise, as does a picture with
+    intra blocks and no intra plan.  The CCP and RDPCM flags that raised
+    before they were ported now latch the program variant and decode:
+    here flags with no effect (a CCP scale on a luma TU, RDPCM on a
+    transformed TU), so the planes stay the oracle's."""
     _, progs = programs(gop_bytes("p-sao"))
     p = progs[1]
     fd = FusedDecoder(device="cpu")
     with pytest.raises(NotImplementedError, match="MAX_REFS"):
         fd.decode(dataclasses.replace(p, ref_pocs=list(range(9))))
-    tus = p.tus.copy()
-    tus["cross_comp_scale"][0] = 1
-    with pytest.raises(NotImplementedError, match="A2"):
-        fd.decode(dataclasses.replace(p, tus=tus))
-    tus = p.tus.copy()
-    tus["flags"][0] |= TU_RDPCM
-    with pytest.raises(NotImplementedError, match="A2"):
-        fd.decode(dataclasses.replace(p, tus=tus))
     with pytest.raises(ValueError, match="intra plan"):
         fd.decode(dataclasses.replace(progs[0], ip=None))
+    k = np.nonzero((p.tus["cidx"] == 0) & (
+        p.tus["flags"] & (TU_TRANSFORM_SKIP | TU_TQ_BYPASS) == 0))[0][0]
+    for field, value, latch in (("cross_comp_scale", 1, "has_ccp"),
+                                ("flags", TU_RDPCM, "has_rdpcm")):
+        tus = p.tus.copy()
+        tus[field][k] |= value
+        fd = FusedDecoder(device="cpu")
+        got = fd.decode(dataclasses.replace(p, tus=tus))
+        assert getattr(fd.packer, latch)
+        for c in range(3):
+            np.testing.assert_array_equal(got[c].numpy(), p.planes[c])
 
 
 # ---------------------------------------------------------------------------
