@@ -54,11 +54,25 @@ Phases (any failure raises and the script exits non-zero):
      intra and inter pictures; packed by numpy, against the oracle), and
      two pictures with RDPCM flags injected into their TU records (a
      lossless picture, and the first 104x72 picture with transform skip
-     on its 4x4 TUs), each equal to the port's decode on the CPU.
+     on its 4x4 TUs), each equal to the port's decode on the CPU;
+  6. pictures with more than 8 references: a 1920x1088 stream of 12
+     frames of periodic stripes (up to 15 references; pictures 9-11 read
+     9-11 and go to pipeline.reconstruct) decoded with PipelinedDecoder()
+     as in phase 3 (counts set to 0 before, read after, every frame
+     bit-exact, 3 pictures through the pipeline), then picture by picture
+     (synced ms of the routed and the fused pictures; B8, B9 once and B10
+     three times in a routed picture, no other kernel), the first routed
+     picture's B8, B9 and B10 calls against their plain versions, the
+     last routed picture's stages (residuals, MC, intra, deblocking, SAO;
+     synced ms, device_intra False and True in turns), that picture on the
+     card against the CPU, and a 10-bit reconstruct_stream chain (64x48,
+     3 pictures) against the oracle, its planes uint16.
 
-The last three lines of stdout are the kernels JSON object (all twelve
-rows: B1-B10, the fused step and the persistent scan), the card's
-nvidia-smi line and the result line {"ok": true, "device": {...}}.
+The kernels line's launches are the sums over the main-path runs of
+phases 3 and 6.  The last three lines of stdout are the kernels JSON
+object (all twelve rows: B1-B10, the fused step and the persistent scan),
+the card's nvidia-smi line and the result line {"ok": true, "device":
+{...}}.
 Nothing here imports JAX or the JAX package libde265_tpu.
 """
 from __future__ import annotations
@@ -347,6 +361,72 @@ def rdpcm_programs(conf_prog):
     return out
 
 
+def make_stripe_stream(path: Path, w=1920, h=1088, frames=12, block=8):
+    """Pictures that read many references, encoded (or reused) as
+    make_stream does: 16 vertical stripes of w // 16 samples, stripe j
+    showing one of j + 1 textures of seeded random levels on block x block
+    luma squares (and on block/2 squares in chroma, a texture of its own)
+    in turn, so that it repeats every j + 1 pictures and picture t finds an
+    exact match for stripe j only in picture t - j - 1.  Random levels
+    cost less to code than uniform noise, and no shift of one texture
+    matches another.  QP 32, CTB 32, up to 15 references, intra period 32,
+    SAO on: picture t reads t references."""
+    if path.exists():
+        return path.read_bytes(), 0.0
+    from libde265_tpu_torch import Encoder
+    sw = w // 16
+    rng = np.random.default_rng(7)
+    tex = [[[rng.integers(16, 236, (h // block + 1, sw // block + 1))
+             for _ in range(j + 1)] for j in range(16)] for _ in range(2)]
+    one = np.ones((block, block))
+    t0 = time.perf_counter()
+    with Encoder(qp=32, ctb_size=32) as enc:
+        enc.set_parameter("num-refs", 15)
+        enc.set_parameter("intra-period", 32)
+        enc.set_parameter("sao", True)
+        data = b""
+        for t in range(frames):
+            y = np.zeros((h, w), np.uint8)
+            cb = np.zeros((h // 2, w // 2), np.uint8)
+            for j in range(16):
+                k = t % (j + 1)
+                y[:, j * sw:(j + 1) * sw] = np.kron(tex[0][j][k], one)[
+                    :h, :sw]
+                cb[:, j * sw // 2:(j + 1) * sw // 2] = np.kron(
+                    tex[1][j][k], one[::2, ::2])[:h // 2, :sw // 2]
+            data += enc.encode(y, cb, 255 - cb)
+        data += enc.finish()
+    dt = time.perf_counter() - t0
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(data)
+    return data, dt
+
+
+def make_10bit_gop(path: Path):
+    """Three 64x48 10-bit 4:2:0 pictures, intra period 4, QP 30, CTB 32
+    (the content of tests/_torch_common.gop): samples above 255, for the
+    pipeline's reconstruct_stream chain."""
+    if path.exists():
+        return path.read_bytes()
+    from libde265_tpu_torch import Encoder
+    w, h = 64, 48
+    xx, yy = np.meshgrid(np.arange(w), np.arange(h))
+    with Encoder(qp=30, ctb_size=32, bit_depth=10) as enc:
+        enc.set_parameter("intra-period", 4)
+        data = b""
+        for f in range(3):
+            y = (128 + 60 * np.sin((xx + 3 * f) * 0.11)
+                 * np.cos((yy + 2 * f) * 0.07)).clip(0, 255)
+            cb = (100 + 40 * np.sin((xx[::2, ::2] + f) * 0.07)).clip(0, 255)
+            cr = (150 - 40 * np.cos((yy[::2, ::2] + f) * 0.06)).clip(0, 255)
+            data += enc.encode(*((a * 4).astype(np.uint16)
+                                 for a in (y, cb, cr)))
+        data += enc.finish()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(data)
+    return data
+
+
 def synthetic_intra(seed, H=128, W=128, bit_depth=8):
     """A seeded synthetic intra scan with all four sizes in shared steps.
 
@@ -502,9 +582,11 @@ def read_counts():
     return {n: getattr(ops_module(v[2]), v[3]) for n, v in ALL.items()}
 
 
-def main_path_run(what, data, progs):
+def main_path_run(what, data, progs, routed=0):
     """One main-path run: counts set to 0, PipelinedDecoder() over the
-    stream, synchronised, counts read; every frame held bit-exact."""
+    stream, synchronised, counts read; every frame held bit-exact, every
+    picture packed natively but the `routed` ones (more than MAX_REFS
+    references), which go to pipeline.reconstruct."""
     import torch
     import libde265_tpu_torch as lt
     pd = lt.PipelinedDecoder()
@@ -516,11 +598,16 @@ def main_path_run(what, data, progs):
     counts = read_counts()
     assert_bit_exact(outs, progs, what)
     pk = pd.fd.packer
-    if (pk.native_packs, pk.numpy_packs) != (len(progs), 0):
+    if (pk.native_packs, pk.numpy_packs) != (len(progs) - routed, 0):
         raise AssertionError(f"{what}: {pk.native_packs} pictures packed "
                              f"natively and {pk.numpy_packs} by numpy, of "
                              f"{len(progs)}")
-    log(f"{what}: {len(progs)} frames bit-exact, all packed natively; e2e "
+    if pd.fd.pipeline_pictures != routed:
+        raise AssertionError(f"{what}: {pd.fd.pipeline_pictures} pictures "
+                             f"through the pipeline, expected {routed}")
+    log(f"{what}: {len(progs)} frames bit-exact, all packed natively"
+        f"{f' but {routed} through pipeline.reconstruct' if routed else ''}; "
+        f"e2e "
         f"{len(progs) / dt:.4f} fps ({1000 * dt / len(progs):.1f} "
         f"ms/frame); launches {json.dumps(counts)}")
     return counts, dt
@@ -774,7 +861,7 @@ def device_ms(fn, kernel=None):
     return us / 1000 if us > 0 else None
 
 
-def measured_device_ms(fn, what, kernel=None, tries=5):
+def measured_device_ms(fn, what, kernel=None, tries=20):
     """device_ms(fn, kernel), profiled again while the profiler sees no
     device time, up to `tries` profiles; raises if it never does."""
     for _ in range(tries):
@@ -1543,10 +1630,172 @@ def compare_intra_trace(trace, err, ncases, ms):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: pictures with more than MAX_REFS references
+# ---------------------------------------------------------------------------
+
+def pipeline_stage_ms(prog, refs, reps=3):
+    """Synced ms of each stage of pipeline.reconstruct on one picture on
+    the card (the stages as reconstruct runs them, a synchronise after
+    each), with device_intra False and True in turns, reps runs each:
+    {device_intra: (median ms per stage, planes of the last run)}."""
+    import torch
+    from libde265_tpu_torch import pipeline as pl
+    dev = refs[0][0].device
+    runs = {False: [], True: []}
+    out = {}
+    for _ in range(reps):
+        for device_intra in (False, True):
+            spent = {}
+            torch.cuda.synchronize()
+            t = [time.perf_counter()]
+
+            def mark(name):
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                spent[name] = 1000 * (now - t[0])
+                t[0] = now
+
+            planes = pl._zero_planes(prog, dev)
+            res = pl._compute_residuals(prog, dev)
+            pl._apply_ccp(prog, res)
+            mark("residuals")
+            pl._motion_compensate(prog, planes, refs)
+            pl._apply_pcm(prog, planes)
+            pl._add_inter_residuals(prog, planes, res)
+            mark("MC")
+            (pl._intra_wavefront if device_intra else pl._intra_host)(
+                prog, planes, res)
+            mark("intra")
+            pl._deblock(prog, planes)
+            mark("deblocking")
+            pl._apply_sao(prog, planes)
+            mark("SAO")
+            runs[device_intra].append(spent)
+            out[device_intra] = planes
+    return {di: ({k: statistics.median(r[k] for r in rs) for k in rs[0]},
+                 out[di]) for di, rs in runs.items()}
+
+
+def many_refs_phase(smi):
+    """Phase 6: the 1080p stripe stream, whose pictures 9-11 read 9-11
+    references, through PipelinedDecoder() (the main path; counts set to
+    0 before it and read after it), then per picture, the routed
+    pictures' kernel calls against the plain versions, the stages of a
+    routed picture, the card against the CPU, and a 10-bit
+    reconstruct_stream chain.  Returns the main-path run's (counts,
+    seconds) and the kernel comparison's (max error, cases)."""
+    import torch
+    import libde265_tpu_torch as lt
+    from libde265_tpu_torch import pipeline as pl
+    from libde265_tpu_torch.feed import MAX_REFS
+    data, t_enc = make_stripe_stream(BUILD / "chip_smoke" /
+                                     "stripes_1080p_12f.h265")
+    log(f"stream: 1920x1088 periodic stripes, 12 frames, up to 15 "
+        f"references, {len(data)} bytes, encoded in {t_enc:.1f} s")
+    dec = lt.Decoder(parse_only=True, keep_programs=True)
+    list(dec.decode_all(data))
+    pprogs = [dec.get_program(i) for i in range(dec.num_programs())]
+    nrefs = [len(p.ref_pocs) for p in pprogs]
+    routed = [i for i, n in enumerate(nrefs) if n > MAX_REFS]
+    if nrefs[9:12] != [9, 10, 11] or routed != [9, 10, 11]:
+        raise AssertionError(f"stripe stream: references per picture "
+                             f"{nrefs}")
+    _, progs = oracle_programs(data)
+    run = main_path_run("1080p many references", data, progs,
+                        routed=len(routed))
+
+    # per picture: synced ms and launches; a routed picture launches B8
+    # and B9 once and B10 once per plane, and no other kernel
+    fd = lt.FusedDecoder()
+    fd.plan_stream(pprogs)
+    ms_r, ms_f = [], []
+    for i, p in enumerate(pprogs):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fd.decode(p)
+        torch.cuda.synchronize()
+        ms = 1000 * (time.perf_counter() - t0)
+        c = read_counts()
+        if i in routed:
+            ms_r.append(ms)
+            if (c[B8], c[B9], c[B10]) != (1, 1, 3) or \
+                    sum(c.values()) != 5:
+                raise AssertionError(f"routed picture {i}: launches "
+                                     f"{json.dumps(c)}")
+        else:
+            ms_f.append(ms)
+    if fd.pipeline_pictures != len(routed):
+        raise AssertionError(f"{fd.pipeline_pictures} routed pictures")
+    assert_bit_exact([out], progs[-1:], "many references, last picture")
+    log(f"many references: routed pictures {routed} ms (synced) "
+        f"{[round(m, 2) for m in ms_r]}, fused pictures ms "
+        f"{[round(m, 2) for m in ms_f]} (median "
+        f"{statistics.median(ms_f):.2f}); B8 / B9 / B10 launches per routed "
+        f"picture 1 / 1 / 3 on {smi}")
+
+    # the routed picture's kernel calls against their plain versions
+    fd9 = lt.FusedDecoder()
+    for p in pprogs[:routed[0]]:
+        fd9.decode(p)
+    (cap,) = capture_inputs(fd9, pprogs[routed[0]:routed[0] + 1])
+    if set(cap) != {"deblock_luma", "deblock_chroma", "sao_plane_fused"}:
+        raise AssertionError(f"routed picture: kernels {sorted(cap)}")
+    err, ncases = compare_kernels([(f"routed picture {routed[0]}", cap)])
+    log(f"routed picture {routed[0]}: B8, B9 and B10 equal to their plain "
+        f"versions on its calls (tolerance 0): "
+        f"{json.dumps({n: ncases[n] for n in (B8, B9, B10)})}")
+
+    # the stages of the last routed picture, from the decoder's DPB
+    prog = pprogs[routed[-1]]
+    refs = fd._dpb_refs(prog)
+    for device_intra, (spent, planes) in pipeline_stage_ms(prog,
+                                                           refs).items():
+        assert_bit_exact([planes], progs[routed[-1]:routed[-1] + 1],
+                         f"stages, device_intra={device_intra}")
+        log(f"routed picture {routed[-1]} by stage, device_intra="
+            f"{device_intra} (synced ms, median of 3, the two settings in "
+            f"turns): "
+            f"{json.dumps({k: round(v, 2) for k, v in spent.items()})}, "
+            f"total {sum(spent.values()):.2f} on {smi}")
+
+    # the card against the CPU on the same picture and references
+    t0 = time.perf_counter()
+    cpu = pl.reconstruct(prog, device="cpu",
+                         ref_planes=[[q.cpu() for q in r] for r in refs])
+    t_cpu = time.perf_counter() - t0
+    card = pl.reconstruct(prog, ref_planes=refs)
+    for c in range(3):
+        if not torch.equal(card[c].cpu(), cpu[c]):
+            raise AssertionError(f"routed picture: plane {c} differs "
+                                 f"between the card and the CPU")
+    log(f"routed picture {routed[-1]}: the card equals the CPU "
+        f"(reconstruct on the CPU {t_cpu:.2f} s, host)")
+
+    # a 10-bit chain: the pipeline's own pictures as references, all bits
+    gdata = make_10bit_gop(BUILD / "chip_smoke" / "gop_64x48_10bit.h265")
+    _, gprogs = oracle_programs(gdata)
+    n = 0
+    for gp, (poc, planes) in zip(gprogs, pl.reconstruct_stream(gprogs)):
+        if poc != gp.poc or any(not q.is_cuda or q.dtype != torch.uint16
+                                for q in planes):
+            raise AssertionError(f"10-bit chain: POC {poc}")
+        assert_bit_exact([[q.int() for q in planes]], [gp],
+                         f"10-bit chain POC {poc}")
+        n += 1
+    peak = max(int(gp.planes[0].max()) for gp in gprogs)
+    if n != len(gprogs) or peak <= 255:
+        raise AssertionError(f"10-bit chain: {n} pictures, peak {peak}")
+    log(f"10-bit reconstruct_stream chain (64x48, {n} pictures, samples up "
+        f"to {peak}): bit-exact on the card, uint16 planes")
+    return run, err, ncases
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 def main():
+    t_start = time.perf_counter()
     smi = card_check()
     import torch
 
@@ -1850,6 +2099,16 @@ def main():
             raise AssertionError(f"RDPCM {what}: the flags changed nothing")
         log(f"RDPCM injected, {what}: the card equals the CPU decode")
 
+    # ---- phase 6: pictures with more than 8 references ----
+    run6, err6, ncases6 = many_refs_phase(smi)
+    runs.append(run6)
+    counts = {n: sum(r[0][n] for r in runs) for n in NAMES}
+    for n in NAMES:
+        err[n] = max(err[n], err6[n])
+        ncases[n] += ncases6[n]
+    log(f"launches in the main-path runs (phases 3 and 6): "
+        f"{json.dumps(counts)}")
+
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "libde265_tpu") or
                  m.startswith(("jax.", "jaxlib", "libde265_tpu.")))
@@ -1867,6 +2126,8 @@ def main():
                         "ms_device": ms[n][5], "plain_ms": ms[n][1],
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": library[n]})
+    log(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -29,10 +29,10 @@ import numpy as np
 
 from .decoder import OP_RESIDUAL, TU_INTRA, TU_RDPCM, FrameProgramData
 from .ops import mc_seg
+from .ops.deblock import NOREF
 from .ops.mc_seg import pus_to_wire  # noqa: F401  (re-exported)
 
 MAX_REFS = 8
-NOREF = -(10 ** 6)
 RING_SLOTS = 2 * MAX_REFS + 1   # DPB ring slots; slot 2*MAX_REFS is gray
 
 # intra super-wave per-step capacities (blocks of size 1<<lg per scan step);

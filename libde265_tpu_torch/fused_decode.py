@@ -40,8 +40,13 @@ and no cross-component prediction has been seen in the stream, else with
 the numpy packer (``FeedPacker.pack``), the only one that ships the CCP
 fields.  Cross-component prediction and RDPCM run in the residual section.
 
-Not in this port yet (raises NotImplementedError): pictures with more than
-MAX_REFS references (ROADMAP A).
+A picture with more than MAX_REFS references goes to
+``pipeline.reconstruct(prog, device_intra=False)``, as in the JAX package,
+with its references read from the decoder's own DPB (the ring slots
+cropped to the picture, or the dict of decoded planes); only a POC the
+decoder does not hold (a seek) is read from the planes the parser
+attached, and a reference found in neither raises RuntimeError.  Its
+planes are stored like any other picture's.
 """
 from __future__ import annotations
 
@@ -56,17 +61,18 @@ from .decoder import (TU_RDPCM, TU_RDPCM_VERTICAL, TU_TQ_BYPASS,
                       TU_TRANSFORM_SKIP, TU_USE_DST, FrameProgramData)
 
 from . import feed as fdp
+from . import pipeline
 from .feed import (AVAIL_WORDS, MAX_REFS, NOREF, RING_SLOTS, WAVE_CAP,
                    FeedPacker)
-from .frame_helpers import (_cells_to_plane, _chroma_qp_map,
-                            _edge_params_jnp, _mc_plane, _merge)
-from .ops import coef_cuda, deblock_cuda, expand, intra_cuda, mc_seg, sao_cuda
-from .ops import deblock as dbk
+from .frame_helpers import (_cells_to_plane, _mc_plane, _merge,
+                            deblock_planes)
+from .ops import coef_cuda, expand, intra_cuda, mc_seg, sao_cuda
 from .ops import intra_window as iw
 from .ops import transform as tx
 from .ops.intra_wave import wave_predict
 from .ops.mc import EPEL_FILTERS, QPEL_FILTERS
-from .ops.sao import EO_D
+from .ops.sao import edge_boundary_ok
+from .ops.transform import ccp_add
 
 _PC_OF = {v: k for k, v in fdp._PLANE_CLASS.items()}
 SPARSE_BLOCK = 1024             # words per block of the sparse upload
@@ -356,24 +362,6 @@ def _add_escapes(buf, off: int, n: int, cfx, cfv):
     buf.index_add_(0, torch.where(ok, cfx + off, buf.shape[0] - 1), cfv)
 
 
-def ccp_add(res, rows, scale, bd: int, bdc: int):
-    """Cross-component prediction of one bin: res [N, S, S] int32 with
-    res[i] += (scale[i] * ((res[rows[i]] << bdc) >> bd)) >> 3 wherever
-    rows[i] >= 0 (the partner luma TU's row in the bin).  As the reference
-    decoder computes it: the shifts are logical on uint32 and the product
-    wraps at 32 bits, then the arithmetic >> 3 of its int32 value.  Done
-    in int64 with the low 32 bits masked, as torch.uint32 has no shifts or
-    products on every build."""
-    r_y = res[rows.long().clamp(min=0)].long()
-    term = (((r_y & 0xFFFFFFFF) << bdc) & 0xFFFFFFFF) >> bd
-    # scale is in [-8, 8]: its signed product has the uint32 product's low
-    # 32 bits and does not overflow int64
-    prod = (scale.long()[:, None, None] * term) & 0xFFFFFFFF
-    prod = torch.where(prod >= 1 << 31, prod - (1 << 32), prod)
-    out = (res.long() + (prod >> 3)).to(torch.int32)
-    return torch.where((rows >= 0)[:, None, None], out, res)
-
-
 def _rdpcm(base, flags, tskip, bypass):
     """RDPCM of one bin: the residual of a TU flagged TU_RDPCM with
     transform skip or bypass becomes its prefix sums down the columns
@@ -428,6 +416,16 @@ def _residual_section(feed, sf_tables, st):
             bin_res[lg] = ccp_add(bin_res[lg], bf["ccp_row"],
                                   bf["ccp_scale"], bd, st["bdc"])
     return bin_res
+
+
+def _attached(prog, i, device):
+    """The planes the parser attached for reference i of prog (a full
+    decode), as int32 tensors on device, or None (a parse-only program)."""
+    if i < len(prog.ref_planes) and prog.ref_planes[i] and \
+            prog.ref_planes[i][0] is not None:
+        return [torch.from_numpy(p.astype(np.int32)).to(device)
+                for p in prog.ref_planes[i] if p is not None]
+    return None
 
 
 def pad_replicate(plane, hp: int, wp: int):
@@ -710,57 +708,20 @@ def _wave_step(flat, shape, meta, aw, resid, P0, P1, WT, s: int,
 # ---------------------------------------------------------------------------
 
 def _edge_ok_jnp(emap, feed, recs, sidx, cs, Hc, Wc, st):
-    """Per-sample SAO edge validity across slice/tile boundaries (port of
-    ops.sao.edge_boundary_ok, as the JAX program's _edge_ok_jnp)."""
-    dev = emap.device
-    cs_y, cs_x = cs
-    yy = (torch.arange(Hc, device=dev) // cs_y)[:, None]
-    xx = (torch.arange(Wc, device=dev) // cs_x)[None, :]
-    A = feed["slice_addr"][yy, xx]
-    L = (recs[sidx.long(), 9] != 0)[yy, xx]
-    T = feed["tile_id"][yy, xx]
-
-    def shifted(m, dy, dx):
-        ys = (torch.arange(Hc, device=dev) + dy).clamp(0, Hc - 1)
-        xs = (torch.arange(Wc, device=dev) + dx).clamp(0, Wc - 1)
-        return m[ys[:, None], xs[None, :]]
-
-    def ok(dy, dx):
-        slice_ok = (shifted(A, dy, dx) == A) | (L & shifted(L, dy, dx))
-        tile_ok = st["across_tiles"] | (shifted(T, dy, dx) == T)
-        return slice_ok & tile_ok
-
-    good = torch.ones((Hc, Wc), dtype=torch.bool, device=dev)
-    for cls in range(4):
-        dy0, dx0, dy1, dx1 = (int(v) for v in EO_D[cls].ravel())
-        good = torch.where(emap == cls, ok(dy0, dx0) & ok(dy1, dx1), good)
-    return good
+    """Per-sample SAO edge validity across slice/tile boundaries (the JAX
+    program's _edge_ok_jnp): ops.sao.edge_boundary_ok on the feed's
+    per-CTB grids."""
+    return edge_boundary_ok(emap, feed["slice_addr"],
+                            recs[sidx.long(), 9] != 0, feed["tile_id"],
+                            st["across_tiles"], cs, Hc, Wc)
 
 
 def _deblock_section(planes, feed, recs, cell, skip4, st):
     """Deblock V then H, luma and chroma, from the per-4x4 metadata: one
     B8 call for luma and one B9 call for both chroma planes, each on the
-    unpadded planes, returning contiguous planes."""
-    sub_x, sub_y = st["sub_x"], st["sub_y"]
-    bd, bdc = st["bd"], st["bdc"]
-    has_chroma = not st["mono"]
-    is420 = sub_x == 2 and sub_y == 2
-    dev = planes[0].device
+    unpadded planes, returning contiguous planes (frame_helpers.
+    deblock_planes)."""
     pb_h, pb_w = feed["qp4"].shape
-    cs4 = st["ctb_size"] // 4
-    cy = (torch.arange(pb_h, device=dev) // cs4)[:, None]
-    cx = (torch.arange(pb_w, device=dev) // cs4)[None, :]
-    sidx4 = feed["slice_idx"][cy, cx].clamp(0, st["n_slices"] - 1).long()
-    disabled4 = recs[sidx4, 1] != 0
-    sa4 = feed["slice_addr"][cy, cx]
-    ti4 = feed["tile_id"][cy, cx]
-    across4 = recs[sidx4, 9] != 0
-
-    def gate(axis):
-        slice_ok = (torch.roll(sa4, 1, dims=axis) == sa4) | across4
-        tile_ok = st["across_tiles"] | (torch.roll(ti4, 1, dims=axis) == ti4)
-        return (slice_ok & tile_ok & ~disabled4).to(torch.int32)
-
     dbf = feed["dbf4"]
     meta = {
         "intra": feed["cu4"] & 1,
@@ -774,46 +735,10 @@ def _deblock_section(planes, feed, recs, cell, skip4, st):
         "mv": [[cell[f"mv{l}x"].reshape(pb_h, pb_w),
                 cell[f"mv{l}y"].reshape(pb_h, pb_w)] for l in (0, 1)],
         "rp": [cell[f"poc{l}"].reshape(pb_h, pb_w) for l in (0, 1)],
-        "bit_depth": bd,
-        "beta_off": recs[sidx4, 2],
-        "tc_off": recs[sidx4, 3],
-        "cqo0": recs[sidx4, 10],
-        "cqo1": recs[sidx4, 11],
         "unfilt": skip4.to(torch.int32),
-        "allow_v": gate(1),
-        "allow_h": gate(0),
     }
-    tc_table = _i32(dbk.TC_TABLE, dev)
-
-    def chroma_tc(qp_l, cqo, tco, bs):
-        qpc = _chroma_qp_map(qp_l[None] + torch.stack(cqo), is420)
-        tc = tc_table[(qpc + 2 + tco[None]).clamp(0, 53).long()] << (bdc - 8)
-        return torch.where(bs[None] == 2, tc, 0)
-
-    keys = ("bs", "beta", "tc", "no_p", "no_q")
-    pv = _edge_params_jnp(meta, vertical=True)     # [H/4, W/8 - 1]
-    ph = _edge_params_jnp(meta, vertical=False)    # [H/8 - 1, W/4]
-    y = deblock_cuda.deblock_luma(planes[0], [pv[k] for k in keys],
-                                  [ph[k] for k in keys], bit_depth=bd)
-    if not has_chroma:
-        return [y]
-    # chroma edge k lies on luma edge k * sub (parameter column k * sub - 1);
-    # the kernel counts (Wc + 7) // 8 and (Hc + 7) // 8 edges, the last
-    # one too where Wc or Hc is not a multiple of 8 (104x72 4:2:0: Wc = 52,
-    # edge at x = 48); the JAX package keeps Wc // 8 and Hc // 8
-    # (libde265_tpu/fused_decode.py:912, :964), so on such pictures the
-    # port is held against the oracle, not against JAX
-    sv, sh = (slice(None), slice(sub_x - 1, None, sub_x)), \
-        slice(sub_y - 1, None, sub_y)
-    tc_v = chroma_tc(pv["qp_l"][sv], [c[sv] for c in pv["cqo"]],
-                     pv["tco"][sv], pv["bs"][sv])
-    tc_h = chroma_tc(ph["qp_l"][sh], [c[sh] for c in ph["cqo"]],
-                     ph["tco"][sh], ph["bs"][sh])
-    cbcr = deblock_cuda.deblock_chroma(
-        planes[1], planes[2], (tc_v, pv["no_p"][sv], pv["no_q"][sv]),
-        (tc_h, ph["no_p"][sh], ph["no_q"][sh]), bit_depth=bdc, sub_x=sub_x,
-        sub_y=sub_y)
-    return [y, cbcr[0], cbcr[1]]
+    return deblock_planes(planes, meta, recs, feed["slice_idx"],
+                          feed["slice_addr"], feed["tile_id"], st)
 
 
 def _sao_section(planes, feed, recs, skip4, st):
@@ -866,7 +791,9 @@ class FusedDecoder:
     the production formulation; its references live in the DPB ring
     (LRU over 2*MAX_REFS slots, slot 2*MAX_REFS kept gray), else in a dict
     of decoded planes by POC.  last_wire_bytes: the bytes the last
-    production picture's feed upload moved.
+    production picture's feed upload moved.  pipeline_pictures: the
+    pictures with more than MAX_REFS references, decoded by
+    pipeline.reconstruct.
     """
 
     def __init__(self, device="cuda"):
@@ -887,6 +814,7 @@ class FusedDecoder:
         self._scratch = [None, None]
         self._scratch_event = [None, None]
         self._scratch_turn = 0
+        self.pipeline_pictures = 0
 
     def plan_stream(self, progs):
         """Pre-size every capacity watermark from a list of pictures."""
@@ -953,19 +881,12 @@ class FusedDecoder:
         ch = max(prog.chroma_height, 1)
         dev = self.device
 
-        def attached(i):
-            if i < len(prog.ref_planes) and prog.ref_planes[i] and \
-                    prog.ref_planes[i][0] is not None:
-                return [torch.from_numpy(p.astype(np.int32)).to(dev)
-                        for p in prog.ref_planes[i] if p is not None]
-            return None
-
         if self.use_pallas_mc:
             self._ensure_stack(prog)
             slot_map = {}
             for i, poc in enumerate(pocs[:MAX_REFS]):
                 if poc not in self._slot_of:
-                    planes = attached(i)
+                    planes = _attached(prog, i, dev)
                     if planes is not None:
                         self._store_stack(poc, planes, prog)
                 if poc in self._slot_of:
@@ -982,7 +903,7 @@ class FusedDecoder:
         slot_map = {}
         stack = [[], [], []]
         for i, poc in enumerate(pocs[:MAX_REFS]):
-            planes = self.dpb.get(poc) or attached(i)
+            planes = self.dpb.get(poc) or _attached(prog, i, dev)
             if planes is None:
                 planes = [full((H, W), 1 << (prog.bit_depth[0] - 1))]
                 if prog.chroma_width:
@@ -998,11 +919,68 @@ class FusedDecoder:
             stack[2].append(full((ch, cw), 0))
         return [torch.stack(s) for s in stack], slot_map
 
+    def _dpb_refs(self, prog):
+        """[Y, Cb, Cr] of every reference of `prog` from this decoder's
+        DPB: its ring slot cropped to the picture (production formulation;
+        every reference touched in the LRU, so that none is evicted while
+        the picture reads it) or its decoded planes; a POC the decoder
+        does not hold is read from the planes the parser attached (a seek;
+        they seed the ring); else RuntimeError."""
+        pocs = list(prog.ref_pocs)
+        held = self._slot_of if self.use_pallas_mc else self.dpb
+        if self.use_pallas_mc:
+            self._ensure_stack(prog)
+            for poc in pocs:
+                if poc in held:
+                    self._slot_lru.remove(poc)
+                    self._slot_lru.append(poc)
+        refs = []
+        for i, poc in enumerate(pocs):
+            if poc not in held:
+                planes = _attached(prog, i, self.device)
+                if planes is None:
+                    raise RuntimeError(
+                        f"picture POC {prog.poc}: reference POC {poc} is "
+                        "neither in the decoder's DPB nor attached to the "
+                        "program")
+                if not self.use_pallas_mc:
+                    refs.append(planes)
+                    continue
+                self._store_stack(poc, planes, prog)
+            refs.append(self._slot_planes(poc, prog) if self.use_pallas_mc
+                        else self.dpb[poc])
+        return refs
+
+    def _slot_planes(self, poc, prog):
+        """The planes of `poc` in the ring: views of its slot, cropped to
+        the picture (the slot holds them edge-replicated)."""
+        slot = self._slot_of[poc]
+        dims = [(prog.height, prog.width)] + \
+            [(prog.chroma_height, prog.chroma_width)] * 2
+        return [ring[slot * hh + mc_seg.PADT:slot * hh + mc_seg.PADT + h,
+                     mc_seg.PADL:mc_seg.PADL + w]
+                for ring, (hh, _), (h, w) in zip(
+                    self._stack, self._stack_dims,
+                    dims[:3 if prog.chroma_width else 1])]
+
+    def _decode_pipeline(self, prog):
+        """A picture with more than MAX_REFS references, as the JAX package
+        decodes it: pipeline.reconstruct with the host intra loop, then
+        stored as any decoded picture."""
+        planes = pipeline.reconstruct(prog, device_intra=False,
+                                      device=self.device,
+                                      ref_planes=self._dpb_refs(prog))
+        out = tuple(planes[:3 if prog.chroma_width else 1])
+        if self.use_pallas_mc:
+            self._store_stack(prog.poc, out, prog)
+        else:
+            self._store(prog.poc, out)
+        self.pipeline_pictures += 1
+        return out
+
     def decode(self, prog: FrameProgramData):
         if len(prog.ref_pocs) > MAX_REFS:
-            raise NotImplementedError(
-                f"{len(prog.ref_pocs)} references > MAX_REFS={MAX_REFS}: "
-                "needs pipeline.reconstruct and MAX_REFS 16 (ROADMAP A5)")
+            return self._decode_pipeline(prog)
         pk = self.packer
         pk.note_rext(prog)
         H, W = prog.height, prog.width

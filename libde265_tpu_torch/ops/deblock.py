@@ -1,10 +1,14 @@
 """Deblocking filter (spec 8.7.2): tables and the plain PyTorch passes.
 
-Port of ``libde265_tpu/ops/deblock.py``.  A pass filters every edge of one
-orientation at once: the edges sit 8 samples apart and each touches at most
-3 samples per side, so the 8-sample groups around them are independent.
-``_luma_pass`` and ``_chroma_pass`` are the plain versions of the Hopper
-kernels wrapped in ``deblock_cuda`` and the CPU path of the port.
+Port of ``libde265_tpu/ops/deblock.py``.  ``derive_edge_params`` derives
+the per-segment parameters of one edge orientation from the per-4x4
+metadata grids.  A pass filters every edge of one orientation at once: the
+edges sit 8 samples apart and each touches at most 3 samples per side, so
+the 8-sample groups around them are independent.  ``_luma_pass`` and
+``_chroma_pass`` and the plane wrappers around them (``luma_vertical``,
+``luma_horizontal``, ``chroma_vertical``, ``chroma_horizontal``) are the
+plain versions of the Hopper kernels wrapped in ``deblock_cuda`` and the
+CPU path of the port.
 """
 from __future__ import annotations
 
@@ -24,6 +28,94 @@ TC_TABLE = np.array([
 
 CHROMA_QP_TAB = np.array([29, 30, 31, 32, 33, 33, 34, 34, 35, 35, 36, 36, 37,
                           37], dtype=np.int32)
+
+
+NOREF = -(10 ** 6)    # the reference POC of a list a 4x4 cell does not use
+
+
+def derive_edge_params(meta, vertical: bool):
+    """Per-4-sample-segment edge parameters of one orientation.
+
+    meta: per-4x4 tensors intra, nzc, tu_edge_v/h, pu_edge_v/h, qp, pf,
+    mv[2][2], rp[2] (reference POCs, int64), unfilt, allow_v/h, beta_off
+    and tc_off (per-4x4 grids, the Q-side cell's slice governs, or
+    scalars), and the int bit_depth.  Returns bs, beta, tc, qp_l, no_p,
+    no_q as int32 [n_seg_rows, n_edges] for vertical edges (x = 8, 16,
+    ...) and [n_edges, n_seg_cols] for horizontal ones.
+    """
+    return _derive_edge_params(meta, vertical)[0]
+
+
+def _derive_edge_params(meta, vertical: bool):
+    """derive_edge_params and the Q side's tc offset it used."""
+    if vertical:
+        # edges at x4 = 2, 4, ... (x = 8k, k >= 1); segments: every y4
+        q = (slice(None), slice(2, None, 2))
+        p = (slice(None), slice(1, -1, 2))
+        tu_edge = meta["tu_edge_v"][q]
+        pu_edge = meta["pu_edge_v"][q]
+    else:
+        q = (slice(2, None, 2), slice(None))
+        p = (slice(1, -1, 2), slice(None))
+        tu_edge = meta["tu_edge_h"][q]
+        pu_edge = meta["pu_edge_h"][q]
+
+    intra_p = meta["intra"][p] != 0
+    intra_q = meta["intra"][q] != 0
+    nz_p = meta["nzc"][p] != 0
+    nz_q = meta["nzc"][q] != 0
+    pf_p = meta["pf"][p]
+    pf_q = meta["pf"][q]
+    w = torch.where
+    rp, rq = [None, None], [None, None]
+    mvp = [[None, None], [None, None]]
+    mvq = [[None, None], [None, None]]
+    for l in range(2):
+        has_p = ((pf_p >> l) & 1) != 0
+        has_q = ((pf_q >> l) & 1) != 0
+        rp[l] = w(has_p, meta["rp"][l][p], NOREF)
+        rq[l] = w(has_q, meta["rp"][l][q], NOREF)
+        for c in range(2):
+            mvp[l][c] = w(has_p, meta["mv"][l][c][p], 0)
+            mvq[l][c] = w(has_q, meta["mv"][l][c][q], 0)
+
+    def far(mpx, mpy, mqx, mqy):
+        return ((mpx - mqx).abs() >= 4) | ((mpy - mqy).abs() >= 4)
+
+    same_pics = (((rp[0] == rq[0]) & (rp[1] == rq[1])) |
+                 ((rp[0] == rq[1]) & (rp[1] == rq[0])))
+    straight = far(mvp[0][0], mvp[0][1], mvq[0][0], mvq[0][1]) | \
+        far(mvp[1][0], mvp[1][1], mvq[1][0], mvq[1][1])
+    crossed = far(mvp[0][0], mvp[0][1], mvq[1][0], mvq[1][1]) | \
+        far(mvp[1][0], mvp[1][1], mvq[0][0], mvq[0][1])
+    mv_differs = w(rp[0] != rp[1], w(rp[0] == rq[0], straight, crossed),
+                   straight & crossed)
+    # different reference pictures -> bS=1 regardless of the MVs
+    mv_bs = w(same_pics, mv_differs, True).to(torch.int32)
+    bs = w(intra_p | intra_q, 2,
+           w((tu_edge != 0) & (nz_p | nz_q), 1, mv_bs))
+    # picture-boundary/slice/tile/slice-disable gating is folded into the
+    # allow grids (per 4x4 position of the Q side)
+    edge = (tu_edge | pu_edge) != 0
+    allow = meta["allow_v"][q] if vertical else meta["allow_h"][q]
+    bs = w(edge & (allow != 0), bs, 0).to(torch.int32)
+
+    qp_l = (meta["qp"][p] + meta["qp"][q] + 1) >> 1
+    bd = meta["bit_depth"]
+    boff, toff = meta["beta_off"], meta["tc_off"]
+    if torch.is_tensor(boff) and boff.dim() == 2:
+        boff = boff[q]
+    if torch.is_tensor(toff) and toff.dim() == 2:
+        toff = toff[q]
+    dev = bs.device
+    beta_t = torch.as_tensor(BETA_TABLE, device=dev)
+    tc_t = torch.as_tensor(TC_TABLE, device=dev)
+    beta = beta_t[(qp_l + boff).clamp(0, 51).long()] << (bd - 8)
+    tc = tc_t[(qp_l + 2 * (bs - 1) + toff).clamp(0, 53).long()] << (bd - 8)
+    return {"bs": bs, "beta": beta.to(torch.int32), "tc": tc.to(torch.int32),
+            "qp_l": qp_l.to(torch.int32),
+            "no_p": meta["unfilt"][p].to(torch.int32),
+            "no_q": meta["unfilt"][q].to(torch.int32)}, toff
 
 
 def pad_edge0(a, E):
@@ -153,3 +245,36 @@ def _chroma_pass(img, tc, no_p, no_q, bit_depth: int = 8,
     new_g = torch.cat([g[0:1], np0[None], nq0[None], g[3:]])
     out_cols = new_g.permute(1, 2, 0).reshape(H, 8 * E)
     return torch.cat([out_cols, img[:, 8 * E:]], dim=1)
+
+
+def luma_vertical(img, params, bit_depth: int = 8):
+    """The vertical luma pass on a [H, W] int32 plane: params (bs, beta,
+    tc, no_p, no_q), each [H/4, W//8] with edge 0 (the picture's border,
+    bs 0) first.  Returns a new [H, W] plane."""
+    H, W = img.shape
+    pad = img.new_zeros((H, W + 8))
+    pad[:, 4:4 + W] = img
+    return _luma_pass(pad, *params, bit_depth)[:, 4:4 + W]
+
+
+def luma_horizontal(img, params, bit_depth: int = 8):
+    """The horizontal luma pass: params [W/4, H//8] (transposed layout)."""
+    return luma_vertical(img.T, params, bit_depth).T
+
+
+def chroma_vertical(img, tc, no_p, no_q, bit_depth: int = 8,
+                    rows_per_seg: int = 2):
+    """The vertical chroma pass on a [Hc, Wc] int32 plane: tc/no_p/no_q
+    [S, E] with edge 0 first (tc 0 where bS != 2)."""
+    H, W = img.shape
+    pad = img.new_zeros((H, W + 8))
+    pad[:, 2:2 + W] = img
+    return _chroma_pass(pad, tc, no_p, no_q, bit_depth,
+                        rows_per_seg)[:, 2:2 + W]
+
+
+def chroma_horizontal(img, tc, no_p, no_q, bit_depth: int = 8,
+                      rows_per_seg: int = 2):
+    """The horizontal chroma pass (parameters in transposed layout)."""
+    return chroma_vertical(img.T, tc, no_p, no_q, bit_depth,
+                           rows_per_seg).T

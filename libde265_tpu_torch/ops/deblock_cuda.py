@@ -7,8 +7,9 @@ Replace the TPU kernels ``libde265_tpu/ops/deblock_pallas.py:luma_pass``,
 horizontal edge of a picture's plane (both chroma channels) in one launch,
 tile by tile in shared memory, from the plane as it is (a row view will
 do) into a fresh output: no padded copy and no clone.  Their plain versions
-are the composition that the picture program ran before: pad, the vertical
-pass, unpad, pad, the same pass on the transpose, unpad.  The
+are the composition that the picture program ran before: the vertical
+plane pass of ``ops.deblock`` (pad, pass, unpad), then the horizontal one
+(the same on the transpose).  The
 per-orientation wrappers keep the TPU kernels' padded layouts and reach
 the same two kernels with the other orientation switched off.  Bound by
 device memory: one read and one write of each sample, plus the parameters.
@@ -21,7 +22,9 @@ import torch
 
 from . import _build
 from ._tensors import check, on_cuda, stream_of
-from .deblock import _chroma_pass, _luma_pass, pad_edge0
+from .deblock import (_chroma_pass, _luma_pass, chroma_horizontal,
+                      chroma_vertical, luma_horizontal, luma_vertical,
+                      pad_edge0)
 
 luma_launches = 0    # B8 launches since the last reset (read by chip_smoke)
 chroma_launches = 0  # B9 launches since the last reset
@@ -101,18 +104,12 @@ def _check_planes(name, planes, prms):
 # ---------------------------------------------------------------------------
 
 def deblock_luma_plain(y, prm_v, prm_h, bit_depth: int = 8):
-    """Plain version of deblock_luma: the vertical pass on the plane padded
-    by 4 columns each side, then the same pass on the transpose of the
-    result padded by 4 rows each side."""
+    """Plain version of deblock_luma: luma_vertical, then luma_horizontal
+    (the plane padded by 4 samples each side for each pass)."""
     H, W = y.shape
-    pad = y.new_zeros((H, W + 8))
-    pad[:, 4:4 + W] = y
-    y = _luma_pass(pad, *(pad_edge0(p, W // 8) for p in prm_v),
-                   bit_depth)[:, 4:4 + W]
-    pad = y.new_zeros((H + 8, W))
-    pad[4:4 + H] = y
-    return _luma_pass(pad.T, *(pad_edge0(p.T, H // 8) for p in prm_h),
-                      bit_depth).T[4:4 + H].contiguous()
+    y = luma_vertical(y, [pad_edge0(p, W // 8) for p in prm_v], bit_depth)
+    return luma_horizontal(y, [pad_edge0(p.T, H // 8) for p in prm_h],
+                           bit_depth).contiguous()
 
 
 def deblock_luma(y, prm_v, prm_h, bit_depth: int = 8):
@@ -144,26 +141,19 @@ def deblock_luma(y, prm_v, prm_h, bit_depth: int = 8):
 
 def deblock_chroma_plain(cb, cr, prm_v, prm_h, bit_depth: int = 8,
                          sub_x: int = 2, sub_y: int = 2):
-    """Plain version of deblock_chroma: per channel, the vertical pass on
-    the planes padded by 2 columns each side, then the same pass on the
-    transpose of the result padded by 2 rows each side."""
+    """Plain version of deblock_chroma: per channel, chroma_vertical, then
+    chroma_horizontal (padded by 2 samples each side for each pass)."""
     Hc, Wc = cb.shape
     ev, eh = (Wc + 7) // 8, (Hc + 7) // 8
     tc, no_p, no_q = prm_v
-    pad = cb.new_zeros((2, Hc, Wc + 8))
-    pad[:, :, 2:2 + Wc] = torch.stack([cb, cr])
     no_p, no_q = pad_edge0(no_p, ev), pad_edge0(no_q, ev)
-    out = torch.stack([_chroma_pass(pad[c], pad_edge0(tc[c], ev), no_p, no_q,
-                                    bit_depth, 4 // sub_y)
-                       for c in range(2)])[:, :, 2:2 + Wc]
+    out = [chroma_vertical(pl, pad_edge0(tc[c], ev), no_p, no_q, bit_depth,
+                           4 // sub_y) for c, pl in enumerate((cb, cr))]
     tc, no_p, no_q = prm_h
-    pad = cb.new_zeros((2, Hc + 8, Wc))
-    pad[:, 2:2 + Hc] = out
     no_p, no_q = pad_edge0(no_p.T, eh), pad_edge0(no_q.T, eh)
-    out = torch.stack([_chroma_pass(pad[c].T, pad_edge0(tc[c].T, eh), no_p,
-                                    no_q, bit_depth, 4 // sub_x).T
-                       for c in range(2)])
-    return out[:, 2:2 + Hc].contiguous()
+    return torch.stack([chroma_horizontal(pl, pad_edge0(tc[c].T, eh), no_p,
+                                          no_q, bit_depth, 4 // sub_x)
+                        for c, pl in enumerate(out)])
 
 
 def deblock_chroma(cb, cr, prm_v, prm_h, bit_depth: int = 8, sub_x: int = 2,

@@ -33,7 +33,7 @@ import torch
 
 from . import _build
 from ._tensors import check, on_cuda, stream_of
-from .mc import EPEL_FILTERS, QPEL_FILTERS
+from .mc import EPEL_FILTERS, QPEL_FILTERS, _wrap16
 
 # replicate padding of each reference plane inside the ring: a window
 # origin is clamped to >= -(w + taps - 2) >= -70 columns and
@@ -171,10 +171,6 @@ def pack_band_segments(band, srow, x0, n_bands: int):
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
-
-def _wrap16(v):
-    return v.to(torch.int16).to(torch.int32)
-
 
 def _segments(nseg, sidx, kmax: int):
     """(band, PU index) of every segment k < min(nseg[band], kmax), band

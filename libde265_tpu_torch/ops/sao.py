@@ -1,7 +1,9 @@
 """Sample-adaptive offset (spec 8.7.3): tables and the plain PyTorch pass.
 
 Port of ``libde265_tpu/ops/sao.py``.  ``sao_plane`` is the plain version of
-the Hopper kernel wrapped in ``sao_cuda`` and the CPU path of the port.
+the Hopper kernel wrapped in ``sao_cuda`` and the CPU path of the port;
+``upsample_ctb_params`` and ``edge_boundary_ok`` build its per-sample maps
+from the per-CTB parameters, on the device of the plane.
 """
 from __future__ import annotations
 
@@ -75,3 +77,70 @@ def sao_plane(src, type_map, eo_class_map, band_pos_map, offsets_map,
     out = w(type_map == 1, band_res, w(type_map == 2, edge_res, src))
     out = out.clamp(0, maxv)
     return w(skip_map | (type_map == 0), src, out)
+
+
+def _ctb_size(ctb_size):
+    return ((ctb_size, ctb_size) if np.isscalar(ctb_size)
+            else tuple(ctb_size))
+
+
+def edge_boundary_ok(emap, slice_addr, across_slices, tile_id, across_tiles,
+                     ctb_size, H, W):
+    """Per-sample mask of edge-offset applicability across slice/tile
+    boundaries (native/src/sao.cc neighbor_ok; spec 8.7.3), on emap's
+    device.
+
+    emap:          [H, W] eo class per sample (tensor)
+    slice_addr:    [ctb_h, ctb_w] SliceAddrRs per CTB
+    across_slices: [ctb_h, ctb_w] bool, loop_filter_across_slices of the
+                   CTB's slice
+    tile_id:       [ctb_h, ctb_w] tile id per CTB (arrays or tensors)
+    ctb_size:      CTB size in this channel's samples, an int or a
+                   (cs_y, cs_x) pair for anisotropic chroma (4:2:2)
+    """
+    dev = emap.device
+    cs_y, cs_x = _ctb_size(ctb_size)
+    ys = torch.arange(H, device=dev)
+    xs = torch.arange(W, device=dev)
+    yy, xx = (ys // cs_y)[:, None], (xs // cs_x)[None, :]
+    A = torch.as_tensor(slice_addr, device=dev)[yy, xx]
+    L = torch.as_tensor(across_slices, device=dev)[yy, xx]
+    T = torch.as_tensor(tile_id, device=dev)[yy, xx]
+
+    def shifted(m, dy, dx):
+        return m[(ys + dy).clamp(0, H - 1)[:, None],
+                 (xs + dx).clamp(0, W - 1)[None, :]]
+
+    def ok(dy, dx):
+        slice_ok = (shifted(A, dy, dx) == A) | (L & shifted(L, dy, dx))
+        tile_ok = bool(across_tiles) | (shifted(T, dy, dx) == T)
+        return slice_ok & tile_ok
+
+    out = torch.ones((H, W), dtype=torch.bool, device=dev)
+    for cls in range(4):
+        dy0, dx0, dy1, dx1 = (int(v) for v in EO_D[cls].ravel())
+        out = torch.where(emap == cls, ok(dy0, dx0) & ok(dy1, dx1), out)
+    return out
+
+
+def upsample_ctb_params(sao_rec, c, ctb_w, ctb_h, ctb_size, H, W,
+                        device="cpu"):
+    """Per-sample maps (type, eo class, band position: [H, W] int32;
+    offsets [H, W, 4] int32) of channel c from the per-CTB SaoParams
+    records, expanded on `device`.
+
+    ctb_size is the CTB extent in this channel's samples, an int or a
+    (cs_y, cs_x) pair for anisotropic chroma geometry (4:2:2).
+    """
+    cs_y, cs_x = _ctb_size(ctb_size)
+
+    def up(a):
+        t = torch.as_tensor(np.ascontiguousarray(a).astype(np.int32),
+                            device=device)
+        return t.repeat_interleave(cs_y, 0).repeat_interleave(
+            cs_x, 1)[:H, :W].contiguous()
+
+    return (up(sao_rec["type_idx"][:, c].reshape(ctb_h, ctb_w)),
+            up(sao_rec["eo_class"][:, c].reshape(ctb_h, ctb_w)),
+            up(sao_rec["band_pos"][:, c].reshape(ctb_h, ctb_w)),
+            up(sao_rec["offset"][:, c, :].reshape(ctb_h, ctb_w, 4)))

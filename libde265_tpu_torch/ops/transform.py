@@ -153,3 +153,41 @@ def qp_to_fact(qp):
     """levelScale[qp % 6] << (qp / 6) for an int32 tensor of QPs."""
     ls = torch.as_tensor(LEVEL_SCALE, device=qp.device)
     return ls[(qp % 6).long()] << (qp // 6)
+
+
+def scatter_coeffs(tus, coeff_val, coeff_pos, log2_size: int, idx,
+                   device="cpu"):
+    """Dense [len(idx), s, s] int32 levels of the TUs idx of one size bin
+    from the program's sparse coefficient lists, scattered on `device`
+    (one index_put for the whole bin)."""
+    s = 1 << log2_size
+    idx = np.asarray(idx, np.int64)
+    n = tus["ncoeff"][idx].astype(np.int64)
+    start = tus["coeff_start"][idx].astype(np.int64)
+    k = np.repeat(np.arange(len(idx)), n)
+    ent = np.repeat(start - np.cumsum(n) + n, n) + np.arange(int(n.sum()))
+    pos = coeff_pos[ent].astype(np.int64)
+    out = torch.zeros((len(idx), s, s), dtype=torch.int32, device=device)
+    if len(ent):
+        d = torch.as_tensor(np.stack([k, pos >> 6, pos & 63]), device=device)
+        out[d[0], d[1], d[2]] = torch.as_tensor(
+            coeff_val[ent].astype(np.int32), device=device)
+    return out
+
+
+def ccp_add(res, rows, scale, bd: int, bdc: int):
+    """Cross-component prediction of one bin: res [N, S, S] int32 with
+    res[i] += (scale[i] * ((res[rows[i]] << bdc) >> bd)) >> 3 wherever
+    rows[i] >= 0 (the partner luma TU's row in the bin).  As the reference
+    decoder computes it: the shifts are logical on uint32 and the product
+    wraps at 32 bits, then the arithmetic >> 3 of its int32 value.  Done
+    in int64 with the low 32 bits masked, as torch.uint32 has no shifts or
+    products on every build."""
+    r_y = res[rows.long().clamp(min=0)].long()
+    term = (((r_y & 0xFFFFFFFF) << bdc) & 0xFFFFFFFF) >> bd
+    # scale is in [-8, 8]: its signed product has the uint32 product's low
+    # 32 bits and does not overflow int64
+    prod = (scale.long()[:, None, None] * term) & 0xFFFFFFFF
+    prod = torch.where(prod >= 1 << 31, prod - (1 << 32), prod)
+    out = (res.long() + (prod >> 3)).to(torch.int32)
+    return torch.where((rows >= 0)[:, None, None], out, res)

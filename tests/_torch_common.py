@@ -165,6 +165,37 @@ GOPS = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def stripe_stream(w=256, h=64, n=12, qp=30, ctb=32, block=8, seed=7):
+    """A stream whose pictures read many references (bytes, cached): 16
+    vertical stripes, stripe j showing one of j + 1 textures of random
+    block levels (block x block luma samples a level) in turn, so that it
+    repeats every j + 1 pictures and picture t finds an exact match for
+    stripe j in picture t - j - 1 only.  Encoded with up to 15 references
+    and intra period 32, picture t reads min(t, 15) of them."""
+    sw = w // 16
+    rng = np.random.default_rng(seed)
+    tex = [[[rng.integers(16, 236, (h // block + 1, sw // block + 1))
+             for _ in range(j + 1)] for j in range(16)] for _ in range(2)]
+    one = np.ones((block, block))
+    with Encoder(qp=qp, ctb_size=ctb) as enc:
+        enc.set_parameter("num-refs", 15)
+        enc.set_parameter("intra-period", 32)
+        enc.set_parameter("sao", True)
+        stream = b""
+        for t in range(n):
+            y = np.zeros((h, w), np.uint8)
+            cb = np.zeros((h // 2, w // 2), np.uint8)
+            for j in range(16):
+                k = t % (j + 1)
+                y[:, j * sw:(j + 1) * sw] = np.kron(tex[0][j][k], one)[
+                    :h, :sw]
+                cb[:, j * sw // 2:(j + 1) * sw // 2] = np.kron(
+                    tex[1][j][k], one[::2, ::2])[:h // 2, :sw // 2]
+            stream += enc.encode(y, cb, 255 - cb)
+        return stream + enc.finish()
+
+
 def gop_bytes(name):
     g = dict(GOPS[name])
     params = dict(g.pop("params"))

@@ -1,7 +1,7 @@
 """The port's copies of the JAX package's JAX-free modules (``decoder``,
-``encoder``, ``_native``, ``profiles``, the angle tables of ``ops.intra``)
-behave as the originals: the same programs, field by field, the same
-encoded bytes and the same tables."""
+``encoder``, ``_native``, ``profiles``, ``ops.intra``) behave as the
+originals: the same programs, field by field, the same encoded bytes, the
+same tables and the same intra predictions."""
 import dataclasses
 
 import numpy as np
@@ -13,6 +13,7 @@ from libde265_tpu.ops import intra as jintra
 
 import libde265_tpu_torch as lt
 from libde265_tpu_torch import profiles
+from libde265_tpu_torch.ops import intra as pintra
 from libde265_tpu_torch.ops import intra_wave
 
 from _torch_common import gop_bytes
@@ -78,9 +79,53 @@ def test_encoder_bytes_equal(native_build, bit_depth):
 
 def test_angle_tables_equal():
     for got, want in ((intra_wave.ANGLE, jintra.ANGLE),
-                      (intra_wave.INV_ANGLE, jintra.INV_ANGLE)):
+                      (intra_wave.INV_ANGLE, jintra.INV_ANGLE),
+                      (pintra.ANGLE, jintra.ANGLE),
+                      (pintra.INV_ANGLE, jintra.INV_ANGLE)):
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("bit_depth", [8, 10])
+def test_intra_module_equal(bit_depth):
+    """ops.intra: the port's copy predicts every block as the JAX
+    module's does (fill_border, filter_border and predict_block, every
+    mode, size and plane kind, luma strong smoothing on and off), with the
+    same IntraContext availability (slices, tiles, constrained intra)."""
+    rng = np.random.default_rng(bit_depth)
+    H, W, ctb = 64, 96, 32
+    cu_info = rng.integers(0, 2, (H // 4, W // 4)).astype(np.uint8)
+    slice_addr = np.array([[0, 0, 0], [3, 3, 3]])
+    tile_id = np.array([[0, 0, 1], [0, 0, 1]])
+    for kw in ({}, {"constrained": True, "strong_smoothing": False},
+               {"slice_addr": slice_addr, "tile_id": tile_id}):
+        ctxs = [m.IntraContext(W, H, ctb, cu_info, **kw)
+                for m in (pintra, jintra)]
+        for _ in range(24):
+            nT = int(rng.choice([4, 8, 16, 32]))
+            x0 = int(rng.integers(0, (W - nT) // 4 + 1)) * 4
+            y0 = int(rng.integers(0, (H - nT) // 4 + 1)) * 4
+            cidx = int(rng.integers(0, 2))
+            plane = rng.integers(0, 1 << bit_depth, (H, W)).astype(np.int32)
+            assert all(ctxs[0].available(x0, y0, x0 - 1, y0 + k) ==
+                       ctxs[1].available(x0, y0, x0 - 1, y0 + k)
+                       for k in range(-1, 2 * nT))
+            borders = [m.fill_border(plane, c, x0, y0, nT, cidx, 1, 1,
+                                     bit_depth)
+                       for m, c in zip((pintra, jintra), ctxs)]
+            np.testing.assert_array_equal(*borders)
+            for strong in (False, True):
+                np.testing.assert_array_equal(
+                    pintra.filter_border(borders[0], nT, bit_depth, strong),
+                    jintra.filter_border(borders[1], nT, bit_depth, strong))
+            for mode in range(35):
+                out = []
+                for m, c in zip((pintra, jintra), ctxs):
+                    p = plane.copy()
+                    m.predict_block(p, c, x0, y0, nT, cidx, mode, 1, 1,
+                                    bit_depth, chroma444=cidx == 1)
+                    out.append(p)
+                np.testing.assert_array_equal(*out)
 
 
 @pytest.mark.parametrize("size", [(416, 240), (1920, 1088), (3840, 2160)])

@@ -163,15 +163,19 @@ def test_seek_decode_from_reference_planes(native_build):
 
 
 def test_unported_paths_raise(native_build):
-    """More than MAX_REFS references still raise, as does a picture with
-    intra blocks and no intra plan.  The CCP and RDPCM flags that raised
+    """A picture with intra blocks and no intra plan still raises.  More
+    than MAX_REFS references no longer raise NotImplementedError: such a
+    picture goes to pipeline.reconstruct (tests/test_torch_many_refs.py),
+    and one whose references are neither in the decoder's DPB nor
+    attached to the program raises RuntimeError naming the first missing
+    POC instead of reading gray.  The CCP and RDPCM flags that raised
     before they were ported now latch the program variant and decode:
     here flags with no effect (a CCP scale on a luma TU, RDPCM on a
     transformed TU), so the planes stay the oracle's."""
     _, progs = programs(gop_bytes("p-sao"))
     p = progs[1]
     fd = FusedDecoder(device="cpu")
-    with pytest.raises(NotImplementedError, match="MAX_REFS"):
+    with pytest.raises(RuntimeError, match="reference POC 1 "):
         fd.decode(dataclasses.replace(p, ref_pocs=list(range(9))))
     with pytest.raises(ValueError, match="intra plan"):
         fd.decode(dataclasses.replace(progs[0], ip=None))
