@@ -66,10 +66,31 @@ Phases (any failure raises and the script exits non-zero):
      last routed picture's stages (residuals, MC, intra, deblocking, SAO;
      synced ms, device_intra False and True in turns), that picture on the
      card against the CPU, and a 10-bit reconstruct_stream chain (64x48,
-     3 pictures) against the oracle, its planes uint16.
+     3 pictures) against the oracle, its planes uint16;
+  7. the multi-device paths of libde265_tpu_torch.parallel, every device
+     entry cuda:0, each main-path run with the counts set to 0 before it
+     and read after it, every frame bit-exact:
+       a. GopParallelDecoder(["cuda:0"] * 4) on a 1920x1088 P-GOP of 12
+          frames, intra period 4 (3 segments, so the fourth entry idles),
+          every kernel of the production formulation launched (B2, B3
+          and B5 at least once per P picture); then k = 1, 2, 4 and
+          PipelinedDecoder() in turns over 3 passes (fps), and the
+          parse of 1, 2 and 4 segments at once (ms per picture per
+          thread);
+       b. ShardedTileDecoder over 8 entries on two 1920x1088 streams with
+          CTB 32 and 4x2 tiles of 480x544 (4 frames, intra period 8), one
+          gated and one filtering across tiles (the halo exchange): synced
+          ms and launches per picture (B8 and B9 8, B10 24: 3 per tile, in
+          the tile program or in the halo filter); then picture 0 of each
+          stream again with its kernel calls recorded, each call of B4,
+          the scan, B8, B9 and B10 (the tile shapes, and the halo-padded
+          ones with their masks) against its plain version, exact;
+       c. sharded_filter_pipeline at 1088x1928 with 4 row shards, equal
+          to the single-device composition of luma_pass and to that of
+          its plain version, B8 8 times.
 
 The kernels line's launches are the sums over the main-path runs of
-phases 3 and 6.  The last three lines of stdout are the kernels JSON
+phases 3, 6 and 7.  The last three lines of stdout are the kernels JSON
 object (all twelve rows: B1-B10, the fused step and the persistent scan),
 the card's nvidia-smi line and the result line {"ok": true, "device":
 {...}}.
@@ -241,7 +262,7 @@ def synth_frame(t, base, xx, yy):
     return y.astype(np.uint8), cb.astype(np.uint8), cr.astype(np.uint8)
 
 
-def make_stream(path: Path, w, h, frames, qp, params):
+def make_stream(path: Path, w, h, frames, qp, params, ctb=64):
     """Encode (or reuse) a stream under build/; returns (bytes, seconds)."""
     if path.exists():
         return path.read_bytes(), 0.0
@@ -250,7 +271,7 @@ def make_stream(path: Path, w, h, frames, qp, params):
     base = rng.integers(0, 40, (h, w), np.int16)
     yy, xx = np.mgrid[0:h, 0:w]
     t0 = time.perf_counter()
-    with Encoder(qp=qp) as enc:
+    with Encoder(qp=qp, ctb_size=ctb) as enc:
         for k, v in params.items():
             enc.set_parameter(k, v)
         data = b"".join(enc.encode(*synth_frame(t, base, xx, yy))
@@ -922,18 +943,20 @@ def _clone(x):
     return x
 
 
-def capture_inputs(fd, progs):
+def capture_inputs(fd, progs, trace_scan=True):
     """Decode progs with every kernel wrapper recording its arguments;
     returns per picture {wrapper name: [(args, kwargs), ...]}, the intra
-    scan as an IntraTrace under "intra_scan".  Arguments are cloned, but
-    not the padded planes of the intra scan (the trace keeps them)."""
+    scan as an IntraTrace under "intra_scan" (one scan a picture) unless
+    trace_scan is False, when each of its calls is recorded as the others
+    are.  Arguments are cloned, but not the padded planes of a traced
+    intra scan (the trace keeps them)."""
     import torch
     saved = {}
     per_frame = []
 
     def wrap(name, fn):
         def rec(*args, **kwargs):
-            if name == "intra_scan":
+            if name == "intra_scan" and trace_scan:
                 per_frame[-1][name] = IntraTrace(*args, **kwargs)
             else:
                 per_frame[-1].setdefault(name, []).append(
@@ -1791,6 +1814,315 @@ def many_refs_phase(smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the multi-device paths (parallel/), k entries of one card
+# ---------------------------------------------------------------------------
+
+def concurrent_parse(segs):
+    """Each segment parsed on its own thread at once (a parse-only Decoder
+    that keeps the programs, as GopParallelDecoder runs it); returns the
+    wall seconds and each thread's ms per picture."""
+    import threading
+    from libde265_tpu_torch import Decoder
+    per = [None] * len(segs)
+
+    def parse(i):
+        t0 = time.perf_counter()
+        dec = Decoder(parse_only=True, keep_programs=True)
+        list(dec.decode_all(segs[i]))
+        per[i] = 1000 * (time.perf_counter() - t0) / dec.num_programs()
+
+    threads = [threading.Thread(target=parse, args=(i,))
+               for i in range(len(segs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return time.perf_counter() - t0, per
+
+
+def gop_parallel_phase(smi):
+    """(a) GopParallelDecoder(["cuda:0"] * k) on a 1080p P-GOP of 12
+    frames, intra period 4 (3 segments: 16 frames took about a minute to
+    encode on the card machine's host, 12 keep the phase near two
+    minutes; so k = 4 leaves its fourth entry idle and decodes as k = 3
+    would): the k = 4 run is the main path (counts set to 0 before it,
+    read after; every kernel of the production formulation launched, B2,
+    B3 and B5 at least once per P picture); fps of k = 1, 2, 4 and of
+    PipelinedDecoder() over 3 passes in turns, every frame bit-exact; the
+    parse ms per picture with 1, 2 and 4 segments parsed at once (the
+    fourth thread parses the first segment again, on its own decoder).
+    Returns the main-path run's (counts, seconds)."""
+    import torch
+    import libde265_tpu_torch as lt
+    from libde265_tpu_torch.parallel import (GopParallelDecoder,
+                                             split_segments)
+    frames = 12
+    data, t_enc = make_stream(BUILD / "chip_smoke" / f"1080p_{frames}f.h265",
+                              1920, 1088, frames, 32,
+                              {"intra-period": 4, "sao": True})
+    log(f"stream: 1920x1088 P-GOP, {frames} frames, intra period 4, "
+        f"{len(data)} bytes, encoded in {t_enc:.1f} s")
+    segs = split_segments(data)
+    if len(segs) != frames // 4:
+        raise AssertionError(f"{len(segs)} segments, expected {frames // 4}")
+    _, progs = oracle_programs(data)
+
+    def run(k):
+        dec = lt.PipelinedDecoder() if k == 0 else \
+            GopParallelDecoder(["cuda:0"] * k)
+        t0 = time.perf_counter()
+        outs = dec.decode_stream(data)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        what = "PipelinedDecoder" if k == 0 else f"GopParallelDecoder k={k}"
+        assert_bit_exact(outs, progs, f"1080p {frames} frames, {what}")
+        if k and dec.last_assignment != [i % k for i in range(len(segs))]:
+            raise AssertionError(f"{what}: segments on entries "
+                                 f"{dec.last_assignment}")
+        return dt, (dec.last_parse_s if k else None)
+
+    reset_counts()
+    dt, _ = run(4)
+    counts = read_counts()
+    for n in KERNELS:    # the production formulation: B1-B5, scan, B8-B10
+        if counts[n] == 0:
+            raise AssertionError(f"GOP-parallel: no {n} launch")
+    n_p = sum(len(p.pus) > 0 for p in progs)
+    for n in (B2, B3, B5):
+        if counts[n] < n_p:
+            raise AssertionError(f"GOP-parallel: {counts[n]} {n} launches "
+                                 f"over {n_p} P pictures")
+    log(f"GOP-parallel k=4 (main path): {frames} frames bit-exact, "
+        f"{len(segs)} segments on entries {list(range(len(segs)))}"
+        f"{f' (entry {len(segs)} idle)' if len(segs) < 4 else ''}, "
+        f"{frames / dt:.4f} fps; launches {json.dumps(counts)}")
+    fps = {k: [] for k in (0, 1, 2, 4)}
+    parse_s = {k: [] for k in (1, 2, 4)}
+    for _ in range(3):
+        for k in (0, 1, 2, 4):
+            t, ps = run(k)
+            fps[k].append(frames / t)
+            if k:
+                parse_s[k].append(ps)
+    for k, v in fps.items():
+        what = "PipelinedDecoder()" if k == 0 else \
+            f"GopParallelDecoder(['cuda:0'] * {k})"
+        extra = "" if k == 0 else (
+            f"; its concurrent parse {[round(1e3 * x, 1) for x in parse_s[k]]}"
+            f" ms of the stream")
+        log(f"1080p {frames}-frame P-GOP, {what}: fps over 3 passes in turns "
+            f"{[round(x, 4) for x in v]}, median "
+            f"{statistics.median(v):.4f}{extra} on {smi}")
+    for n in (1, 2, 4):
+        walls, per = [], []
+        for _ in range(3):
+            wall, p = concurrent_parse([segs[i % len(segs)]
+                                        for i in range(n)])
+            walls.append(wall)
+            per.extend(p)
+        log(f"parse of {n} segment(s) at once (4 pictures each, 3 reps): "
+            f"ms per picture per thread median "
+            f"{statistics.median(per):.2f} (min {min(per):.2f}, max "
+            f"{max(per):.2f}); wall median {1e3 * statistics.median(walls):.1f}"
+            f" ms, {4 * n / statistics.median(walls):.2f} pictures/s in all; "
+            f"{os.cpu_count()} host cores on {smi}")
+    return counts, dt
+
+
+def sharded_tile_phase(smi):
+    """(b) ShardedTileDecoder over 8 entries of the card on two 1920x1088
+    streams with CTB 32 and 4x2 tiles of 480x544 (4 frames, intra period
+    8), one gated and one filtering across tiles: a warm pass, then the
+    main path (counts set to 0 before, read after; per-picture launches
+    and synced ms), every frame bit-exact; then the host partition of
+    each picture alone and the last picture under torch.profiler (device
+    busy ms, idle share).  Returns one (counts, seconds) per stream."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from libde265_tpu_torch.parallel import (ShardedTileDecoder, make_mesh,
+                                             tile_grid)
+    runs = []
+    for across in (False, True):
+        what = "across tiles" if across else "gated"
+        data, t_enc = make_stream(
+            BUILD / "chip_smoke" /
+            f"1080p_tiles4x2_{'across' if across else 'gated'}.h265",
+            1920, 1088, 4, 32,
+            {"intra-period": 8, "sao": True, "tile-cols": 4, "tile-rows": 2,
+             "across-tiles": across}, ctb=32)
+        _, progs = oracle_programs(data)
+        rows, cols = tile_grid(progs[0])
+        if rows != [(0, 544), (544, 1088)] or \
+                cols != [(x, x + 480) for x in range(0, 1920, 480)] or \
+                progs[0].across_tiles != across:
+            raise AssertionError(f"tiles ({what}): rows {rows}, cols {cols}")
+        log(f"stream: 1920x1088, CTB 32, 4x2 tiles of 480x544, {what}, 4 "
+            f"frames, {len(data)} bytes, encoded in {t_enc:.1f} s")
+        sd = ShardedTileDecoder(make_mesh(devices=["cuda:0"] * 8))
+        for p in progs:                                 # warm
+            sd.decode(p)
+        torch.cuda.synchronize()
+        sd = ShardedTileDecoder(make_mesh(devices=["cuda:0"] * 8))
+        outs, ms, per = [], [], []
+        reset_counts()
+        prev = read_counts()
+        t_run = time.perf_counter()
+        for p in progs:
+            t0 = time.perf_counter()
+            outs.append(sd.decode(p))
+            torch.cuda.synchronize()
+            ms.append(1000 * (time.perf_counter() - t0))
+            c = read_counts()
+            per.append({n: c[n] - prev[n] for n in NAMES if c[n] - prev[n]})
+            prev = c
+        dt = time.perf_counter() - t_run
+        counts = read_counts()
+        assert_bit_exact(outs, progs, f"tile-sharded ({what})")
+        for i, c in enumerate(per):
+            if (c.get(B8), c.get(B9), c.get(B10)) != (8, 8, 24):
+                raise AssertionError(f"tile-sharded ({what}) picture {i}: "
+                                     f"launches {json.dumps(c)}")
+        for n in (B4, SCAN, B8, B9, B10):
+            if counts[n] == 0:
+                raise AssertionError(f"tile-sharded ({what}): no {n} launch")
+        log(f"tile-sharded ({what}): 4 frames bit-exact on 8 entries of the "
+            f"card; synced ms per picture {[round(x, 2) for x in ms]}; "
+            f"launches per picture {json.dumps(per)} on {smi}")
+        runs.append((counts, dt))
+        sharded_kernel_check(progs[0], per[0], what, smi)
+        part = []
+        for p in progs:
+            t0 = time.perf_counter()
+            sd._partition(p)
+            part.append(1000 * (time.perf_counter() - t0))
+        sd = ShardedTileDecoder(make_mesh(devices=["cuda:0"] * 8))
+        for p in progs[:-1]:
+            sd.decode(p)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sd.decode(progs[-1])
+            torch.cuda.synchronize()
+            wall = 1000 * (time.perf_counter() - t0)
+        busy = sum(_device_us(e) for e in prof.key_averages()) / 1000
+        log(f"tile-sharded ({what}): host partition alone (tile grid, "
+            f"per-tile TU bins, intra records) ms per picture "
+            f"{[round(x, 2) for x in part]}; picture 3 profiled: wall "
+            f"{wall:.2f} ms, device busy {busy:.2f} ms"
+            + (f", idle share {1 - busy / wall:.3f}" if busy > 0 else
+               " (the profiler saw no device time; idle share not "
+               "measured)") + f" on {smi}")
+    return runs
+
+
+def sharded_kernel_check(prog, launches, what, smi):
+    """Picture 0 of a tile-sharded stream decoded again (a fresh decoder,
+    the wrappers recording their arguments): each call of B4, the scan,
+    B8, B9 and B10 at the tile shapes (and, across tiles, the halo-padded
+    shapes of the halo filter with its allow and edge_ok masks) against
+    its plain version on the card, tolerance 0; the calls per family
+    equal the main path's launches of that picture."""
+    import torch
+    from libde265_tpu_torch.parallel import ShardedTileDecoder, make_mesh
+    t0 = time.perf_counter()
+    sd = ShardedTileDecoder(make_mesh(devices=["cuda:0"] * 8))
+    (cap,) = capture_inputs(sd, [prog], trace_scan=False)
+    calls = {}
+    for name, c in cap.items():
+        calls[FAMILY[name]] = calls.get(FAMILY[name], 0) + len(c)
+    if calls != launches or set(calls) != {B4, SCAN, B8, B9, B10}:
+        raise AssertionError(f"tile-sharded ({what}) picture 0: calls "
+                             f"{json.dumps(calls)}, main-path launches "
+                             f"{json.dumps(launches)}")
+    shapes = {name: sorted({tuple(a[0].shape) for a, _ in c})
+              for name, c in cap.items()
+              if name not in ("densify_bins", "intra_scan")}
+    shapes["intra_scan"] = sorted({tuple(p.shape) for a, _ in
+                                   cap.get("intra_scan", []) for p in a[0]})
+    err, ncases = compare_kernels([(f"tile-sharded ({what}) picture 0",
+                                    cap)])
+    del cap
+    torch.cuda.synchronize()
+    log(f"tile-sharded ({what}) picture 0: B4, the scan, B8, B9 and B10 "
+        f"equal to their plain versions on its calls (tolerance 0): "
+        f"{json.dumps({n: ncases[n] for n in (B4, SCAN, B8, B9, B10)})}; "
+        f"plane shapes {json.dumps(shapes)}; checked in "
+        f"{time.perf_counter() - t0:.1f} s on {smi}")
+
+
+def filter_pipeline_phase(smi):
+    """(c) sharded_filter_pipeline at 1088x1928 with 4 row shards on the
+    card: the main path (counts set to 0 before, read after: B8 once per
+    shard and pass) equal to the single-device composition of luma_pass
+    and to that of its plain version; synced ms of the first two.  Returns
+    (counts, seconds)."""
+    import torch
+    from libde265_tpu_torch.ops.deblock import _luma_pass
+    from libde265_tpu_torch.ops.deblock_cuda import luma_pass
+    from libde265_tpu_torch.parallel import (make_mesh,
+                                             sharded_filter_pipeline)
+    H, W = 1088, 1920
+    rng = np.random.default_rng(11)
+    dev = torch.device("cuda")
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def prm(shape):
+        return [t(rng.integers(0, 3, shape)), t(np.full(shape, 48)),
+                t(np.full(shape, 6)), t(rng.integers(0, 2, shape)),
+                t(rng.integers(0, 2, shape))]
+
+    args = [t(rng.integers(0, 255, (H, W + 8)))] + prm((H // 4, W // 8)) + \
+        prm(((W + 8) // 4, H // 8))
+    fn = sharded_filter_pipeline(make_mesh(devices=["cuda:0"] * 4))
+    fn(*args)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+
+    def single(fn=luma_pass):
+        v = fn(*args[:6], bit_depth=8)
+        return fn(v.T.contiguous(), *args[6:], bit_depth=8).T
+
+    if not torch.equal(got, single()):
+        raise AssertionError("sharded_filter_pipeline differs from the "
+                             "single-device composition")
+    # the same composition of B8's plain version: a wrong B8 at the
+    # shards' shapes would pass the comparison above
+    if not torch.equal(got, single(_luma_pass)):
+        raise AssertionError("sharded_filter_pipeline differs from the "
+                             "composition of the plain luma pass")
+    if counts[B8] != 8 or sum(counts.values()) != 8:
+        raise AssertionError(f"filter pipeline: launches "
+                             f"{json.dumps(counts)}")
+    log(f"sharded_filter_pipeline 1088x1928, 4 row shards on the card: "
+        f"equal to the single-device composition of B8 and of its plain "
+        f"version (tolerance 0); B8 launches 8; synced "
+        f"{median_ms(lambda: fn(*args), reps=10):.4f} ms against "
+        f"{median_ms(single, reps=10):.4f} ms single (CUDA events, median "
+        f"of 10) on {smi}")
+    return counts, dt
+
+
+def multi_device_phase(smi):
+    """Phase 7: the GOP-parallel, tile-sharded and filter-pipeline paths;
+    returns their main-path runs' (counts, seconds)."""
+    t0 = time.perf_counter()
+    runs = [gop_parallel_phase(smi)] + sharded_tile_phase(smi) + \
+        [filter_pipeline_phase(smi)]
+    log(f"phase 7 (multi-device paths) took {time.perf_counter() - t0:.1f} "
+        f"s, stream encodes included")
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2107,6 +2439,12 @@ def main():
         err[n] = max(err[n], err6[n])
         ncases[n] += ncases6[n]
     log(f"launches in the main-path runs (phases 3 and 6): "
+        f"{json.dumps(counts)}")
+
+    # ---- phase 7: the multi-device paths ----
+    runs += multi_device_phase(smi)
+    counts = {n: sum(r[0][n] for r in runs) for n in NAMES}
+    log(f"launches in the main-path runs (phases 3, 6 and 7): "
         f"{json.dumps(counts)}")
 
     bad = sorted(m for m in sys.modules

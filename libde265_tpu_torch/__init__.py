@@ -8,7 +8,9 @@ package's JAX-free modules.  The whole-picture program is PyTorch; its
 coefficient densify, intra super-wave step, deblocking and SAO stages are
 hand-written CUDA kernels for Hopper (``csrc/``), built with nvcc at first
 use.  The decoders run on the CUDA card unless given ``device="cpu"``; on
-CPU tensors every kernel runs its plain PyTorch version.
+CPU tensors every kernel runs its plain PyTorch version.  ``parallel``
+decodes over several devices (segments or tiles), the CUDA cards unless
+given a list of devices.
 
 Float32 matrix products would not be exact for the transform sums, so the
 port runs them in float64 and keeps TF32 off: the two flags below are set
@@ -17,14 +19,21 @@ when the package is imported.
 
 import torch
 
-from .decoder import Decoder, FrameProgramData  # noqa: F401
+from .decoder import Decoder, FrameProgramData, Picture  # noqa: F401
 from .encoder import Encoder  # noqa: F401
 
 from .fused_decode import FusedDecoder  # noqa: F401
 from .stream import PipelinedDecoder  # noqa: F401
+from .parallel import (GopParallelDecoder, Mesh,  # noqa: F401
+                       ShardedTileDecoder, make_mesh, shard_residual_batch,
+                       sharded_filter_pipeline, split_segments, tile_columns,
+                       tile_grid)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["Decoder", "Encoder", "FrameProgramData", "FusedDecoder",
-           "PipelinedDecoder"]
+           "GopParallelDecoder", "Mesh", "Picture", "PipelinedDecoder",
+           "ShardedTileDecoder", "make_mesh", "shard_residual_batch",
+           "sharded_filter_pipeline", "split_segments", "tile_columns",
+           "tile_grid"]

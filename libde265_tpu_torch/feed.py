@@ -301,12 +301,21 @@ def has_rdpcm(prog: FrameProgramData) -> bool:
 def _check_pu_index(prog: FrameProgramData):
     """The segment words carry 16-bit PU indices (two per word): raise the
     ValueError of mc_seg.plan_segment_indices for a picture with more
-    than 65536 PUs, before any native call packs a wrapped index."""
-    if len(prog.pus) > 0x10000:
+    than mc_seg.MAX_PUS PUs, before any native call packs a wrapped
+    index."""
+    if len(prog.pus) > mc_seg.MAX_PUS:
         raise ValueError(
             f"pack_native: {len(prog.pus)} PUs in the picture; PU "
             f"{len(prog.pus) - 1} does not fit the segment words' 16-bit "
-            f"index (at most 65536 PUs)")
+            f"index (at most {mc_seg.MAX_PUS} PUs)")
+
+
+def routed(prog: FrameProgramData, pallas_mc: bool) -> bool:
+    """Whether FusedDecoder sends prog to pipeline.reconstruct: more than
+    MAX_REFS references, or on the production formulation (pallas_mc)
+    more than mc_seg.MAX_PUS PUs, which the segment words cannot index."""
+    return len(prog.ref_pocs) > MAX_REFS or (
+        pallas_mc and len(prog.pus) > mc_seg.MAX_PUS)
 
 
 def native_live(prog: FrameProgramData) -> bool:
@@ -709,8 +718,8 @@ class FeedPacker:
         native packer from prog's live native source: the same
         (layout, buf, lgs, n_slices), watermarks and latches.  The layout
         is cached on the watermarks it depends on.  Raises ValueError for
-        more than 65536 PUs (before any native call) or without a live
-        source, RuntimeError when the native side fails."""
+        more than mc_seg.MAX_PUS PUs (before any native call) or without a
+        live source, RuntimeError when the native side fails."""
         _check_pu_index(prog)
         caps = self.native_caps(prog)
         if caps is None:

@@ -63,7 +63,8 @@ def _chroma_qp_map(qpi, is420):
     return qpi.clamp(0, 51)
 
 
-def deblock_planes(planes, meta, recs, slice_idx, slice_addr, tile_id, st):
+def deblock_planes(planes, meta, recs, slice_idx, slice_addr, tile_id, st,
+                   allow=None):
     """Deblock V then H, luma and chroma: one B8 call for luma and one B9
     call for both chroma planes (ops.deblock_cuda), returning contiguous
     planes.
@@ -75,7 +76,10 @@ def deblock_planes(planes, meta, recs, slice_idx, slice_addr, tile_id, st):
     (tensors); the Q-side cell's slice governs (spec 8.7.2).  st: sub_x,
     sub_y, bd, bdc, mono, ctb_size, n_slices, across_tiles.  An edge
     between slices is filtered only where the Q slice allows it, and a
-    tile edge where the picture does."""
+    tile edge where the picture does.  allow: an optional pair of per-4x4
+    int32 masks (vertical, horizontal edges) that also gate every edge,
+    as the halo-padded tiles of the sharded decode need (the picture's
+    bounds are interior columns and rows there)."""
     sub_x, sub_y = st["sub_x"], st["sub_y"]
     bd, bdc = st["bd"], st["bdc"]
     is420 = sub_x == 2 and sub_y == 2
@@ -95,9 +99,12 @@ def deblock_planes(planes, meta, recs, slice_idx, slice_addr, tile_id, st):
         tile_ok = st["across_tiles"] | (torch.roll(ti4, 1, dims=axis) == ti4)
         return (slice_ok & tile_ok & ~disabled4).to(torch.int32)
 
+    allow_v, allow_h = gate(1), gate(0)
+    if allow is not None:
+        allow_v, allow_h = allow_v * allow[0], allow_h * allow[1]
     meta = dict(meta, bit_depth=bd, beta_off=recs[sidx4, 2],
                 tc_off=recs[sidx4, 3], cqo0=recs[sidx4, 10],
-                cqo1=recs[sidx4, 11], allow_v=gate(1), allow_h=gate(0))
+                cqo1=recs[sidx4, 11], allow_v=allow_v, allow_h=allow_h)
     tc_table = torch.as_tensor(dbk.TC_TABLE, device=dev)
 
     def chroma_tc(qp_l, cqo, tco, bs):

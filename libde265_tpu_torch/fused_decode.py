@@ -42,11 +42,13 @@ fields.  Cross-component prediction and RDPCM run in the residual section.
 
 A picture with more than MAX_REFS references goes to
 ``pipeline.reconstruct(prog, device_intra=False)``, as in the JAX package,
-with its references read from the decoder's own DPB (the ring slots
-cropped to the picture, or the dict of decoded planes); only a POC the
-decoder does not hold (a seek) is read from the planes the parser
-attached, and a reference found in neither raises RuntimeError.  Its
-planes are stored like any other picture's.
+and so does, on the production formulation, a picture with more than
+``mc_seg.MAX_PUS`` PUs, whose indices the segment words cannot hold (the
+JAX package writes them wrapped); its references are read from the
+decoder's own DPB (the ring slots cropped to the picture, or the dict of
+decoded planes); only a POC the decoder does not hold (a seek) is read from
+the planes the parser attached, and a reference found in neither raises
+RuntimeError.  Its planes are stored like any other picture's.
 """
 from __future__ import annotations
 
@@ -720,7 +722,8 @@ def _deblock_section(planes, feed, recs, cell, skip4, st):
     """Deblock V then H, luma and chroma, from the per-4x4 metadata: one
     B8 call for luma and one B9 call for both chroma planes, each on the
     unpadded planes, returning contiguous planes (frame_helpers.
-    deblock_planes)."""
+    deblock_planes).  The feed's optional positional masks allow_xv /
+    allow_xh (the sharded decode's halo filter) gate the edges too."""
     pb_h, pb_w = feed["qp4"].shape
     dbf = feed["dbf4"]
     meta = {
@@ -737,12 +740,18 @@ def _deblock_section(planes, feed, recs, cell, skip4, st):
         "rp": [cell[f"poc{l}"].reshape(pb_h, pb_w) for l in (0, 1)],
         "unfilt": skip4.to(torch.int32),
     }
+    allow = (feed["allow_xv"], feed["allow_xh"]) if "allow_xv" in feed \
+        else None
     return deblock_planes(planes, meta, recs, feed["slice_idx"],
-                          feed["slice_addr"], feed["tile_id"], st)
+                          feed["slice_addr"], feed["tile_id"], st, allow)
 
 
 def _sao_section(planes, feed, recs, skip4, st):
-    """SAO from the per-CTB parameter maps; one B10 kernel per plane."""
+    """SAO from the per-CTB parameter maps; one B10 kernel per plane.  The
+    feed's optional positional masks eo_ok_y{c} / eo_ok_x{c} ([4, Hc] and
+    [4, Wc] bool: whether both neighbours of an edge-offset class lie in
+    the picture's rows and columns; the sharded decode's halo filter, whose
+    padded tile holds the picture bounds inside it) gate edge_ok too."""
     H, W, sub_x, sub_y = st["H"], st["W"], st["sub_x"], st["sub_y"]
     ctb = st["ctb_size"]
     sidx = feed["slice_idx"].clamp(0, st["n_slices"] - 1).long()
@@ -760,6 +769,12 @@ def _sao_section(planes, feed, recs, skip4, st):
         o = up(feed["sao_off"][:, :, c], cs_y, cs_x, Hc, Wc)
         eok = _edge_ok_jnp(e, feed, recs, sidx, (cs_y, cs_x), Hc, Wc, st) \
             if st["multi_boundary"] else None
+        if f"eo_ok_x{c}" in feed:
+            cls, dev = e.long(), e.device
+            pos = feed[f"eo_ok_y{c}"][cls, torch.arange(Hc, device=dev)[
+                :, None]] & feed[f"eo_ok_x{c}"][cls, torch.arange(
+                    Wc, device=dev)[None, :]]
+            eok = pos if eok is None else eok & pos
         return sao_cuda.sao_plane_fused(planes[c].contiguous(), t, e, b, o,
                                         skip, bit_depth=bd, edge_ok=eok)
 
@@ -790,14 +805,18 @@ class FusedDecoder:
     use_pallas_mc (True on the card, False on the CPU, settable) selects
     the production formulation; its references live in the DPB ring
     (LRU over 2*MAX_REFS slots, slot 2*MAX_REFS kept gray), else in a dict
-    of decoded planes by POC.  last_wire_bytes: the bytes the last
-    production picture's feed upload moved.  pipeline_pictures: the
-    pictures with more than MAX_REFS references, decoded by
-    pipeline.reconstruct.
+    of decoded planes by POC.  run_deblock / run_sao (as in the JAX
+    package) switch the loop filters of every picture off.
+    last_wire_bytes: the bytes the last production picture's feed upload
+    moved.  pipeline_pictures: the pictures decoded by
+    pipeline.reconstruct (more than MAX_REFS references, or on the
+    production formulation more than mc_seg.MAX_PUS PUs).
     """
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", run_deblock=True, run_sao=True):
         self.device = torch.device(device)
+        self.run_deblock = run_deblock
+        self.run_sao = run_sao
         self.packer = FeedPacker()
         self.dpb = {}
         self._order = []
@@ -817,8 +836,21 @@ class FusedDecoder:
         self.pipeline_pictures = 0
 
     def plan_stream(self, progs):
-        """Pre-size every capacity watermark from a list of pictures."""
-        self.packer.plan_stream(progs, pallas_mc=self.use_pallas_mc)
+        """Pre-size every capacity watermark from a list of pictures (those
+        that go to pipeline.reconstruct need none)."""
+        self.packer.plan_stream(
+            [p for p in progs if not fdp.routed(p, self.use_pallas_mc)],
+            pallas_mc=self.use_pallas_mc)
+
+    def reset(self):
+        """Forget every decoded picture: the dict of planes and the ring,
+        which the next picture allocates anew (at its own size)."""
+        self.dpb.clear()
+        self._order.clear()
+        self._slot_of = {}
+        self._slot_lru = []
+        self._stack = None
+        self._stack_dims = None
 
     # -- the padded DPB ring (production formulation) --
 
@@ -964,11 +996,12 @@ class FusedDecoder:
                     dims[:3 if prog.chroma_width else 1])]
 
     def _decode_pipeline(self, prog):
-        """A picture with more than MAX_REFS references, as the JAX package
-        decodes it: pipeline.reconstruct with the host intra loop, then
-        stored as any decoded picture."""
-        planes = pipeline.reconstruct(prog, device_intra=False,
-                                      device=self.device,
+        """A picture with more than MAX_REFS references (or PUs beyond the
+        segment words' index), as the JAX package decodes the former:
+        pipeline.reconstruct with the host intra loop and this decoder's
+        loop filter flags, then stored as any decoded picture."""
+        planes = pipeline.reconstruct(prog, self.run_deblock, self.run_sao,
+                                      device_intra=False, device=self.device,
                                       ref_planes=self._dpb_refs(prog))
         out = tuple(planes[:3 if prog.chroma_width else 1])
         if self.use_pallas_mc:
@@ -979,7 +1012,7 @@ class FusedDecoder:
         return out
 
     def decode(self, prog: FrameProgramData):
-        if len(prog.ref_pocs) > MAX_REFS:
+        if fdp.routed(prog, self.use_pallas_mc):
             return self._decode_pipeline(prog)
         pk = self.packer
         pk.note_rext(prog)
@@ -1031,8 +1064,8 @@ class FusedDecoder:
             "pcm_lf_disable": bool(prog.pcm_loop_filter_disable),
             "across_tiles": bool(prog.across_tiles),
             "multi_boundary": pk.multi,
-            "run_deblock": True,
-            "run_sao": True,
+            "run_deblock": bool(self.run_deblock),
+            "run_sao": bool(self.run_sao),
             "steps_cap": pk.caps["steps"] or 1,
             "intra_bins": tuple(sorted(pk.intra_lgs)),
             "pallas_intra": True,

@@ -35,6 +35,11 @@ from . import _build
 from ._tensors import check, on_cuda, stream_of
 from .mc import EPEL_FILTERS, QPEL_FILTERS, _wrap16
 
+# The most PUs a picture may have on the segment path: the segment words
+# carry 16-bit PU indices (B3 and B2 read them; B2 paints (ordinal << 16) |
+# index).  FusedDecoder sends a picture with more to pipeline.reconstruct.
+MAX_PUS = 0x10000
+
 # replicate padding of each reference plane inside the ring: a window
 # origin is clamped to >= -(w + taps - 2) >= -70 columns and
 # >= -(OR + taps - 2) >= -10 rows
@@ -73,11 +78,11 @@ def plan_segment_indices(pus: np.ndarray, list_idx: int, H: int):
     n_bands = (H + 3) // 4
     sel = np.nonzero((pus["pred_flags"] & (1 << list_idx)) != 0)[0] \
         if len(pus) else np.zeros(0, np.int64)
-    if len(sel) and sel[-1] > 0xFFFF:
+    if len(sel) and sel[-1] >= MAX_PUS:
         raise ValueError(
             f"plan_segment_indices: {len(pus)} PUs in the picture; PU "
             f"{int(sel[-1])} of list {list_idx} does not fit the segment "
-            f"words' 16-bit index (at most 65536 PUs)")
+            f"words' 16-bit index (at most {MAX_PUS} PUs)")
     if not len(sel):
         return (np.zeros(n_bands, np.int32),
                 np.zeros((n_bands, 1), np.int32), 1)

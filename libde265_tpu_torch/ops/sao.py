@@ -123,8 +123,7 @@ def edge_boundary_ok(emap, slice_addr, across_slices, tile_id, across_tiles,
     return out
 
 
-def upsample_ctb_params(sao_rec, c, ctb_w, ctb_h, ctb_size, H, W,
-                        device="cpu"):
+def upsample_ctb_params(sao_rec, c, ctb_w, ctb_h, ctb_size, H, W, device):
     """Per-sample maps (type, eo class, band position: [H, W] int32;
     offsets [H, W, 4] int32) of channel c from the per-CTB SaoParams
     records, expanded on `device`.

@@ -155,8 +155,7 @@ def qp_to_fact(qp):
     return ls[(qp % 6).long()] << (qp // 6)
 
 
-def scatter_coeffs(tus, coeff_val, coeff_pos, log2_size: int, idx,
-                   device="cpu"):
+def scatter_coeffs(tus, coeff_val, coeff_pos, log2_size: int, idx, device):
     """Dense [len(idx), s, s] int32 levels of the TUs idx of one size bin
     from the program's sparse coefficient lists, scattered on `device`
     (one index_put for the whole bin)."""

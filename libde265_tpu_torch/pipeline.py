@@ -96,7 +96,7 @@ def _store_blocks(plane, xs, ys, blocks, add_clip=None):
 # 1. residuals
 # ---------------------------------------------------------------------------
 
-def _compute_residuals(prog: FrameProgramData, device="cpu"):
+def _compute_residuals(prog: FrameProgramData, device):
     """All TU residuals, size-binned on `device`.
 
     Returns {log2 size: (TU indices [N] int64, residuals [N, s, s] int32
@@ -484,7 +484,7 @@ def _skip_filter_map4(prog: FrameProgramData):
     return skip
 
 
-def _paint_motion_grids(prog: FrameProgramData, device="cpu"):
+def _paint_motion_grids(prog: FrameProgramData, device):
     """Per-4x4 motion metadata painted from the PU records (the deblocking
     bS input), on `device`: pred flags and MVs (int32), reference POCs
     (int64, NOREF where a list is unused).  The per-PU values are made on

@@ -19,41 +19,74 @@ from .decoder import Decoder
 from .fused_decode import FusedDecoder
 
 
-_CHUNK = 1 << 16   # bytes pushed to the parser at a time
-
-
 class PipelinedDecoder:
-    """Stream decoder with parse/pack/execute overlap on `device` (the
-    CUDA card unless the caller asks for the CPU).
+    """Stream decoder with parse/pack/execute overlap.
+
+    `fused` is the FusedDecoder that decodes the pictures; without one, a
+    FusedDecoder on `device` (the CUDA card unless the caller asks for the
+    CPU).  An explicit `fused` keeps its own device.
 
     Usage::
         pd = PipelinedDecoder()
+        pd.warm(data)                      # optional: final capacities
         outs = pd.decode_stream(data)      # list of device plane tuples
     """
 
-    def __init__(self, device="cuda"):
-        self.fd = FusedDecoder(device=device)
+    def __init__(self, fused: FusedDecoder | None = None, device="cuda"):
+        self.fd = fused if fused is not None else FusedDecoder(device=device)
 
-    def decode_stream(self, data: bytes):
-        """Decode an Annex-B stream with all three stages overlapped;
-        returns one tuple of device planes per picture, in decode order.
+    def warm(self, data: bytes):
+        """Parse, plan and decode the stream once, so that every capacity
+        watermark is final, then reset; returns the number of pictures."""
+        dec = Decoder(parse_only=True, keep_programs=True)
+        list(dec.decode_all(data))
+        progs = [dec.get_program(i) for i in range(dec.num_programs())]
+        self.fd.plan_stream(progs)
+        for p in progs:
+            self.fd.decode(p)
+        self.reset()
+        return len(progs)
+
+    def reset(self):
+        """Forget the decoded pictures, the DPB ring included, so that the
+        next stream (of any size) reads none of this one's references."""
+        self.fd.reset()
+
+    def decode_stream(self, data: bytes, chunk: int = 1 << 16,
+                      on_frame=None):
+        """Decode an Annex-B stream with all three stages overlapped,
+        pushing `chunk` bytes at a time to the parser.
+
+        Returns one tuple of device planes per picture, in decode order;
+        with `on_frame`, calls on_frame(i, planes) for each picture as it
+        is launched instead, and returns [].
 
         On a one-core host the parse thread would contend with packing
         instead of overlapping it, so the pipeline parses first there.
         """
         dec = Decoder(parse_only=True, keep_programs=True)
+        outs = []
+
+        def emit(i):
+            planes = self.fd.decode(dec.get_program(i))
+            if on_frame is not None:
+                on_frame(i, planes)
+            else:
+                outs.append(planes)
+
         if (os.cpu_count() or 1) < 2:
             list(dec.decode_all(data))
-            return [self.fd.decode(dec.get_program(i))
-                    for i in range(dec.num_programs())]
+            for i in range(dec.num_programs()):
+                emit(i)
+            return outs
         done = threading.Event()
         err = []
 
         def parse():
             try:
                 mv = memoryview(data)
-                for off in range(0, len(data), _CHUNK):
-                    dec.push(bytes(mv[off:off + _CHUNK]))
+                for off in range(0, len(data), chunk):
+                    dec.push(bytes(mv[off:off + chunk]))
                 dec.flush()
                 # drive the decode pump (parse-only: programs are exported,
                 # pictures carry no pixels and are released immediately)
@@ -70,15 +103,16 @@ class PipelinedDecoder:
 
         t = threading.Thread(target=parse, daemon=True)
         t.start()
-        outs = []
+        i = 0
         try:
             while True:
                 n = dec.num_programs()
-                while len(outs) < n:
-                    outs.append(self.fd.decode(dec.get_program(len(outs))))
-                if done.is_set() and len(outs) == dec.num_programs():
+                while i < n:
+                    emit(i)
+                    i += 1
+                if done.is_set() and i == dec.num_programs():
                     break
-                if len(outs) >= n:
+                if i >= n:
                     time.sleep(0.0002)
         finally:
             t.join()

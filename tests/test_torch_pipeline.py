@@ -97,7 +97,7 @@ def test_scatter_coeffs_matches_jax(native_build, name):
         for lg in (2, 3, 4, 5):
             sel = np.nonzero(tus["log2_size"] == lg)[0]
             _eq(tx.scatter_coeffs(tus, prog.coeff_val, prog.coeff_pos, lg,
-                                  sel),
+                                  sel, "cpu"),
                 jtx.scatter_coeffs(tus, prog.coeff_val, prog.coeff_pos, lg,
                                    sel), f"{name} lg {lg}")
 
@@ -257,7 +257,7 @@ def test_sao_maps_match_jax(native_build, name):
             want = jsao.upsample_ctb_params(prog.sao, c, prog.ctb_w,
                                             prog.ctb_h, cs, H, W)
             got = sao.upsample_ctb_params(prog.sao, c, prog.ctb_w,
-                                          prog.ctb_h, cs, H, W)
+                                          prog.ctb_h, cs, H, W, "cpu")
             for g, w in zip(got, want):
                 _eq(g, w, f"{name} upsample plane {c}")
             for across_tiles in (False, True):
@@ -275,7 +275,7 @@ def test_intra_wave_matches_jax(native_build, name):
     """plan_blocks (border_plan inside) and intra_wave_kernel, batch by
     batch on the same planes, against the JAX wavefront."""
     for prog in stream_programs(name)[:2]:
-        res = P._compute_residuals(prog)
+        res = P._compute_residuals(prog, "cpu")
         ctx = P._intra_context(prog)
         got = intra_wave.plan_blocks(prog, ctx, res)
         want = jiw.plan_blocks(prog, ctx, _as_dict(res))
@@ -320,7 +320,7 @@ def test_pipeline_stages_match_jax(native_build, name):
         what = f"{name} picture {i}"
         want = J._compute_residuals(prog)
         J._apply_ccp(prog, want)
-        res = P._compute_residuals(prog)
+        res = P._compute_residuals(prog, "cpu")
         P._apply_ccp(prog, res)
         got = _as_dict(res)
         assert set(got) == set(want), what
@@ -338,7 +338,7 @@ def test_pipeline_stages_match_jax(native_build, name):
             _planes_eq(tp, jp, prog, f"{what} {fn.__name__}")
 
         _eq(P._skip_filter_map4(prog), J._skip_filter_map4(prog), what)
-        pf, mv, rp = P._paint_motion_grids(prog)
+        pf, mv, rp = P._paint_motion_grids(prog, "cpu")
         jpf, jmv, jrp = J._paint_motion_grids(prog)
         _eq(pf, jpf, f"{what} pf")
         for l in range(2):
