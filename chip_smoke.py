@@ -210,6 +210,10 @@ B2_FIRST_DESIGN_MS = 0.0191
 B8_FIRST_DESIGN_MS = 0.0280
 B9_FIRST_DESIGN_MS = 0.0156
 FUSED_STEP_MAIN_PATH_MS = 7.9225
+# The persistent scan per 1080p I picture in its first design (one
+# 1024-thread CTA per plane walking the (step, size bin) pairs, four block
+# barriers and two dependent global round trips each)
+SCAN_FIRST_DESIGN_MS = 1.8679
 B4_FIRST_DESIGN_MS = 0.0132
 # B1 per 1080p P picture in its first design (one 256-thread CTA per output
 # block, 4-byte loads and stores, inv re-read by every thread)
@@ -545,14 +549,67 @@ def synthetic_intra(seed, H=128, W=128, bit_depth=8):
     return planes, irec, nsteps, res
 
 
-def synthetic_scan_inputs(seed, dev, H=128, W=128, bit_depth=8):
-    """synthetic_intra's scan as intra_scan's arguments on `dev`: (padded
-    planes, bins_by_plane, bin_res, tables, nsteps, bit depths)."""
+def full_bin_intra(seed, bit_depth=8, H=128, W=128):
+    """A seeded synthetic intra scan whose 4x4 bins are full: per plane
+    (luma H x W, two 4:2:0 chroma planes) a 4x4 block at every (8a, 8b) in
+    step 0 (256 luma blocks at 128x128: K = WAVE_CAP[2], all valid), no
+    valid block in step 1, and a 4x4 block at every (8a + 4, 8b + 4) in
+    step 2, whose borders read step 0's blocks and samples of no block.  A
+    border sample is available when it lies in the plane and in no block
+    of the same or a later step (the scheduler's rule), less about a tenth
+    dropped at random; modes at random, the edge flags of the native rule
+    for luma.  Returns synthetic_intra's (planes, irec, nsteps, {lg:
+    residual rows})."""
+    from libde265_tpu_torch.feed import AVAIL_WORDS, IREC_COLS
+    rng = np.random.default_rng(seed)
+    sc = 1 << (bit_depth - 8)
+    recs, planes, n_res = [], [], 0
+    s, nb, n2 = 4, 17, 8
+    j = np.arange(nb)
+    for c, (h, w) in enumerate(((H, W), (H // 2, W // 2), (H // 2, W // 2))):
+        planes.append(rng.integers(0, 1 << bit_depth, (h, w)).astype(
+            np.int32))
+        step2 = np.zeros((h, w), bool)     # samples of step-2 blocks
+        for y in range(4, h, 8):
+            for x in range(4, w, 8):
+                step2[y:y + 4, x:x + 4] = True
+        for step, off in ((0, 0), (2, 4)):
+            slot = 0
+            for y in range(off, h, 8):
+                for x in range(off, w, 8):
+                    by = np.where(j < n2, y + n2 - 1 - j, y - 1)
+                    bx = np.where(j <= n2, x - 1, x + j - n2 - 1)
+                    inside = (by >= 0) & (by < h) & (bx >= 0) & (bx < w)
+                    av = (inside & (rng.random(nb) >= 0.1) &
+                          ~(step2[by.clip(0, h - 1), bx.clip(0, w - 1)] &
+                            (step == 0)))
+                    mode = int(rng.integers(0, 35))
+                    edge = {1: 1, 26: 2, 10: 3}.get(mode, 0) if c == 0 else 0
+                    rrow = -1
+                    if rng.random() < 0.7:
+                        rrow, n_res = n_res, n_res + 1
+                    aw = np.packbits(np.pad(av, (0, 32 * AVAIL_WORDS - nb)),
+                                     bitorder="little").view(np.int32)
+                    recs.append([mode, edge, y, x, 8 if av.any() else 9,
+                                 rrow, step, slot, c, 2, *aw])
+                    slot += 1
+    irec = np.array(recs, np.int32)
+    assert irec.shape[1] == IREC_COLS
+    res = {lg: rng.integers(-40 * sc, 41 * sc, (max(n_res if lg == 2 else 0,
+                                                     1), 1 << lg, 1 << lg)
+                            ).astype(np.int32) for lg in (2, 3, 4, 5)}
+    return planes, irec, np.full(3, 3, np.int32), res
+
+
+def scan_inputs(intra, dev, bit_depth=8):
+    """A synthetic scan (synthetic_intra's or full_bin_intra's result) as
+    intra_scan's arguments on `dev`: (padded planes, bins_by_plane,
+    bin_res, tables, nsteps, bit depths)."""
     import torch
     from libde265_tpu_torch import fused_decode as fdm
     from libde265_tpu_torch.ops import intra_cuda
     from libde265_tpu_torch.ops import intra_window as iw
-    planes, irec, nsteps, res = synthetic_intra(seed, H, W, bit_depth)
+    planes, irec, nsteps, res = intra
     bins = tuple(sorted({(("y", "cb", "cr")[int(c)], int(lg))
                          for c, lg in irec[:, 8:10]}))
     scap = int(irec[:, 6].max()) + 1
@@ -565,6 +622,12 @@ def synthetic_scan_inputs(seed, dev, H=128, W=128, bit_depth=8):
     tables = {lg: intra_cuda.mode_tables(1 << lg, torch.device(dev))
               for lg in (2, 3, 4, 5)}
     return padded, by_plane, bin_res, tables, nsteps, [bit_depth] * 3
+
+
+def synthetic_scan_inputs(seed, dev, H=128, W=128, bit_depth=8):
+    """synthetic_intra's scan as intra_scan's arguments on `dev`."""
+    return scan_inputs(synthetic_intra(seed, H, W, bit_depth), dev,
+                       bit_depth)
 
 
 def oracle_programs(data):
@@ -1282,9 +1345,13 @@ def random_cases(dev, b4_sizes, H=1088, W=1920):
                  {"s": s}))
     # the persistent scan: synthetic pictures whose steps share all four
     # luma sizes (no 1080p stream has more than one size per plane)
-    for seed, ibd in ((0, 8), (1, 10)):
+    for seed, ibd in ((0, 8), (1, 10), (2, 12)):
         cases["intra_scan"].append((synthetic_scan_inputs(seed, dev,
                                                           bit_depth=ibd), {}))
+    # and one whose 4x4 bins are full (256 blocks in a luma step), with a
+    # step of no valid block
+    cases["intra_scan"].append((scan_inputs(full_bin_intra(0, 10), dev, 10),
+                                {}))
     return cases
 
 
@@ -1595,7 +1662,7 @@ def compare_intra_trace(trace, err, ncases, ms):
         SCAN: (lambda: scan_all(kernel_of("intra_scan")),
                lambda: scan_all(plain_of("intra_scan")), "intra_scan_kernel"),
         STEP: (lambda: replay(kernel_of("intra_step")),
-               lambda: replay(plain_of("intra_step")), "intra_step_kernel"),
+               lambda: replay(plain_of("intra_step")), "intra_scan_kernel"),
         B6: (lambda: gather_all(kernel_of("border_gather")),
              lambda: gather_all(plain_of("border_gather")),
              "border_gather_kernel"),
@@ -1628,28 +1695,94 @@ def compare_intra_trace(trace, err, ncases, ms):
     # bytes each function must move on this picture's data.  A (step, bin)
     # of the scan or the fused step reads every slot's meta, the valid
     # slots' residual row index and availability words, their residual
-    # blocks and border samples, and stores their blocks; the fused step
-    # reads the packed angular rows of its modes in every call, the scan
-    # each (size, mode) row of the picture once.
+    # blocks and border samples, and stores their blocks.
     aw_words = trace.calls[0][1][2].shape[2]
-    rows = set()
     for (key, s, meta, hm, hr) in views:
         K, nb, ss = meta.shape[0], 4 * s + 1, s * s
         valid = (hm[:, 4] & 8) != 0
         nv = int(valid.sum())
         nres = int((valid & (hr >= 0)).sum())
-        modes = set(hm[valid & (hm[:, 0] >= 2), 0].tolist())
-        rows |= {(s, m) for m in modes}
         ms[B6][2] += 4 * (2 * K + 2 * K * nb)
         ms[B6][3] += K * nb
         ms[B7][2] += 4 * (2 * K + 2 * nv * ss) + K
         ms[B7][3] += nv * ss
         step = 4 * (5 * K + nv * (1 + aw_words + nb + ss) + nres * ss)
-        ms[STEP][2] += step + 4 * len(modes) * ss
+        ms[STEP][2] += step
         ms[SCAN][2] += step
         ms[STEP][3] += nv * ss
         ms[SCAN][3] += nv * ss
-    ms[SCAN][2] += sum(4 * s * s for s, _ in rows)
+
+
+def hold_scans(what, progs, err, ncases):
+    """Every intra scan of a stream on the card (a FusedDecoder over
+    progs, each scan recorded): the kernel, one launch, against its plain
+    version and against the planes the decode left, exact; one scan held
+    for each picture with intra blocks, else it fails.  Returns the number
+    of scans held."""
+    import torch
+    import libde265_tpu_torch as lt
+    from libde265_tpu_torch.ops import intra_cuda
+    fd = lt.FusedDecoder(device=torch.device("cuda"))
+    fd.plan_stream(progs)
+    n = 0
+    for i, cap in enumerate(capture_inputs(fd, progs)):
+        trace = cap.get("intra_scan")
+        if trace is None or not intra_cuda.fill_scan_args(
+                list(trace.initial.values()), *trace.scan)[1]:
+            continue
+        before = intra_cuda.scan_launches
+        got = intra_cuda.intra_scan(
+            [p.clone() for p in trace.initial.values()], *trace.scan)
+        want = intra_cuda.intra_scan_plain(
+            [p.clone() for p in trace.initial.values()], *trace.scan)
+        torch.cuda.synchronize()
+        if intra_cuda.scan_launches != before + 1:
+            raise AssertionError(f"{SCAN} ({what} picture {i}): "
+                                 f"{intra_cuda.scan_launches - before} "
+                                 f"launches")
+        e = max(_max_err(got, want, f"{SCAN} ({what} picture {i})"),
+                _max_err(got, list(trace.final.values()),
+                         f"{SCAN} ({what} picture {i}) vs the decode"))
+        err[SCAN] = max(err[SCAN], e)
+        if e != 0:
+            raise AssertionError(f"{SCAN} ({what} picture {i}): differs "
+                                 f"by {e}")
+        n += 1
+    want = sum(len(p.intras) > 0 for p in progs)
+    if n == 0 or n != want:
+        raise AssertionError(f"{SCAN} ({what}): {n} scans held, {want} "
+                             f"pictures with intra blocks")
+    ncases[SCAN] += n
+    log(f"{SCAN}: {n} scans of the {what} stream equal to the plain "
+        f"version and to the decode (tolerance 0)")
+    return n
+
+
+def chain_probe(rounds, threads):
+    """The least time of one dependent step of the scan on this card
+    (csrc/intra.cu chain_probe_kernel on one CTA of `threads` threads:
+    rounds of store, block barrier, load of the sample another warp
+    stored, store): per way (shared memory, global memory with the scan's
+    loads, global memory with loads from L2), (us per round, clock64
+    cycles per round).  The us are CUDA-event medians of 2 * rounds rounds
+    less those of `rounds`, over `rounds`, so the launch cancels."""
+    import torch
+    from libde265_tpu_torch.ops import _build
+    buf = torch.zeros(2 * threads, dtype=torch.int32, device="cuda")
+    cyc = torch.zeros(1, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for mode, way in enumerate(("shared", "global (ld.global)",
+                                "global (ld.global.cg, L2)")):
+        def run(r):
+            rc = _build.lib().tde_chain_probe(buf.data_ptr(), threads, r,
+                                              mode, cyc.data_ptr(), stream)
+            _build.check_launch("tde_chain_probe", rc)
+        t1 = median_ms(lambda: run(rounds))
+        t2 = median_ms(lambda: run(2 * rounds))
+        run(rounds)
+        out[way] = (1e3 * (t2 - t1) / rounds, int(cyc.item()) / rounds)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2141,7 +2274,7 @@ def main():
         f"{t_kern:.1f} s (parallel nvcc + link {_build.build_seconds} s)")
     for line in _build.build_log.splitlines():
         if any(k in line for k in ("intra", "mc", "paint", "residual",
-                                   "expand", "registers")):
+                                   "expand", "registers", "spill")):
             log(f"  ptxas: {line.strip()}")
 
     import libde265_tpu_torch as lt
@@ -2325,9 +2458,31 @@ def main():
         f"time {lib_dev} ms), B1 in turns with it {b1_ev:.4f} ms (CUDA "
         f"events) on {smi}")
     compare_intra_trace(caps[first_i]["intra_scan"], err, ncases, ms)
-    log(f"intra scan of 1080p I picture {first_i}: "
-        f"{json.dumps(scan_shape(caps[first_i]['intra_scan']))}")
+    shape = scan_shape(caps[first_i]["intra_scan"])
+    log(f"intra scan of 1080p I picture {first_i}: {json.dumps(shape)}")
     del caps, timed, rand
+    hold_scans("1080p all-intra", iprogs, err, ncases)
+
+    # ---- phase 4b: the scan's chain bound ----
+    from libde265_tpu_torch.ops import _build
+    steps = max(shape["steps"])
+    scan_threads = _build.lib().tde_scan_threads()
+    chain = chain_probe(steps, scan_threads)
+    for way, (us, cycles) in chain.items():
+        log(f"chain probe, {way}: {us:.4f} us ({cycles:.1f} cycles) a "
+            f"dependent step (store, block barrier, load, store; one CTA of "
+            f"{scan_threads} threads, the scan's, {steps} rounds) on {smi}")
+    chain_ms = steps * chain["global (ld.global)"][0] / 1e3
+    byte_ms = _bound(SCAN, ms[SCAN][2], ms[SCAN][3])[0]
+    d_scan = ms[SCAN][5]
+    log(f"scan of 1080p I picture {first_i}: {steps} steps, device "
+        + ("not measured" if d_scan is None else
+           f"{d_scan:.4f} ms = {1e3 * d_scan / steps:.4f} us a step; "
+           f"byte bound {byte_ms:.4f} ms (share {byte_ms / d_scan:.4f}), "
+           f"chain bound {chain_ms:.4f} ms (steps x the global round trip; "
+           f"share {chain_ms / d_scan:.4f}), through shared memory "
+           f"{steps * chain['shared'][0] / 1e3:.4f} ms")
+        + f" on {smi}")
     for n in ROWS:
         k_ms, p_ms, nbytes, nout, ncalls, d_ms = ms[n]
         bound_ms, _ = _bound(n, nbytes, nout)
@@ -2338,7 +2493,8 @@ def main():
             f"(CUDA events; device time {dev_txt}) vs plain {p_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({nbytes} bytes) on {smi}")
     log(f"device ms per 1080p I picture: the persistent scan {ms[SCAN][5]} "
-        f"(1 launch) vs the fused step {ms[STEP][5]} in this run "
+        f"(1 launch; {SCAN_FIRST_DESIGN_MS} in its first design) vs the "
+        f"fused step {ms[STEP][5]} in this run "
         f"({ms[STEP][4]} launches; {FUSED_STEP_MAIN_PATH_MS} when it ran the "
         f"main path); B3 device ms per 1080p P picture {ms[B3][5]} "
         f"({ms[B3][4]} launches) vs {B3_FIRST_DESIGN_MS} in its first "
@@ -2369,6 +2525,7 @@ def main():
                              f"launches")
     log(f"104x72 (CTB 64, intra period 4): {len(cprogs)} frames bit-exact; "
         f"launches {json.dumps(c)}")
+    hold_scans("104x72", cprogs, err, ncases)
 
     bdata, _ = make_stream(BUILD / "chip_smoke" / "416x240_bw.h265", 416, 240,
                            8, 30, {"intra-period": 8, "b-slices": True,
@@ -2412,6 +2569,7 @@ def main():
                                  f"of {len(pprogs)}")
         log(f"64x64 4:4:4 CCP ({what}, QP 27): {len(pprogs)} frames "
             f"bit-exact, packed by numpy; CCP TUs per picture {scaled}")
+        hold_scans(f"4:4:4 CCP {what}", pprogs, err, ncases)
 
     # RDPCM, injected: the card against the port's CPU decode
     for what, prog in rdpcm_programs(cprogs[0]):
@@ -2464,6 +2622,8 @@ def main():
                         "ms_device": ms[n][5], "plain_ms": ms[n][1],
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": library[n]})
+        if n == SCAN:
+            kernels[-1]["chain_bound_ms"] = chain_ms
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
 // Intra super-wave scan on the padded plane: kernels B6 (border gather),
-// B7 (window scatter), and the scan's body, which runs B6's gather and B7's
+// B7 (window scatter), and the scan kernel, which runs B6's gather and B7's
 // store around the prediction: launched once per picture by the persistent
 // scan (tde_intra_scan, the decode's path) or once per (step, size bin) by
 // the fused step (tde_intra_step, held against its plain version only).
@@ -17,17 +17,25 @@
 // block of size s: j < 2s the left column from bottom to top, j = 2s the
 // corner, j > 2s the top row from left to right.
 //
-// Bound: each step is tiny (at most 256 blocks, 16K pixels), so a step
-// launched on its own costs about one launch (the fused step); below
-// that, the bytes of the residual rows read and of the blocks written.  The
-// steps of a picture form a chain of dependent steps (528 per plane at
-// 1080p), so the persistent scan runs them all in one launch: one CTA per
-// plane walks its steps with block barriers between them.  The records are
-// copied a step ahead and the residual blocks beside the border gather,
-// asynchronously, and the prediction moves four samples at once; a 1080p
-// step still takes about 4 us, spread over the compaction, the gather, the
-// filter and the prediction, all on the one SM's memory pipeline and four
-// barriers (PERF.md).
+// Bound: not the bytes (records, residual rows and stored blocks: about
+// 10 us for a 1080p I picture) but the chain of dependent steps (528 per
+// plane at 1080p, each of at most a few hundred small blocks): a step's
+// gather reads what the step before stored, so each step costs at least a
+// store, a block barrier and a load (chain_probe_kernel measures that
+// round trip; PERF.md holds both bounds).  The scan therefore runs in one
+// launch, one CTA per plane, and keeps a step's dependent chain to what the
+// data forces: one block barrier and one round trip through the plane.
+// Everything that does not depend on the plane is prepared off that chain
+// by the CTA's last warp: the records are copied two steps ahead and
+// compacted one step ahead, each valid block with its mode's angle.  The
+// other warps run all size bins of a step in one pass, each block by one
+// warp or a part of one (4x4 blocks 8 lanes, 8x8 16, larger ones 32), from
+// its residual and border loads through the filtering (its border in the
+// warp's shared memory, between __syncwarp()s), the DC sum (shuffles) and
+// an angular mode's reference array (the spec's ref[], built once a block)
+// to the store.  A warp's border memory is reused by every block it runs,
+// in the step and in the next one, so each block starts with a __syncwarp()
+// that orders the previous block's reads before its writes.
 //
 // Invariant the persistent scan relies on: the native scheduler
 // (native/src/intraplan.cc build_intra_plan) gives a block the step
@@ -35,11 +43,11 @@
 // of the block that wrote each 4x4 cell.  A block of step i therefore reads
 // only samples written at steps < i, by a block of any size bin of its
 // plane, or before the scan (MC, residual, PCM); the three planes never read
-// each other.  So one CTA per plane may walk the steps in order, the bins of
-// a step one after another, and a __syncthreads() between steps makes the
-// step's global stores visible to the next step's loads (one CTA, so no
-// grid barrier).  test_schedule_reads_only_earlier_steps checks this on real
-// and synthetic schedules.
+// each other.  So one CTA per plane may walk the steps in order, all bins of
+// a step at once, and a __syncthreads() between steps makes the step's
+// global stores visible to the next step's loads (one CTA, so no grid
+// barrier).  test_schedule_reads_only_earlier_steps checks this on real and
+// synthetic schedules.
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -111,23 +119,49 @@ __global__ void window_scatter_kernel(int32_t* __restrict__ plane, int Hp,
 }
 
 // ---------------------------------------------------------------------------
-// The scan's body: one CTA of kScanThreads per plane (the persistent scan)
-// or for one (step, bin) (the fused step).
+// The scan: one CTA per plane (the persistent scan) or for one (step, bin)
+// of plane 0 (the fused step).  The CTA's last warp prepares step i + 1
+// while the other warps run step i; one block barrier a step.
 // ---------------------------------------------------------------------------
 
-constexpr int kScanThreads = 1024;
-constexpr int kMaxSlots = 256;       // WAVE_CAP[2], the widest size bin
-constexpr int kMaxAwWords = 5;       // feed.AVAIL_WORDS
-constexpr int kBorderElems = 4352;   // max over sizes of K * (4s + 1)
-constexpr int kMaxPixels = 16384;    // max over sizes of K * s * s
-constexpr int kBorderPerThread =
-    (kBorderElems + kScanThreads - 1) / kScanThreads;
-constexpr int kQuadsPerThread = kMaxPixels / 4 / kScanThreads;
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxWarps = kMaxThreads / 32;
+// The scan's CTA: 1024 threads, from scripts/scan_probe.py's sweep, which
+// builds other sizes with TDE_SCAN_THREADS defined; one producer warp, the
+// others consumers.
+#ifndef TDE_SCAN_THREADS
+#define TDE_SCAN_THREADS 1024
+#endif
+constexpr int kScanThreads = TDE_SCAN_THREADS;
+constexpr int kScanWarps = kScanThreads / 32;
+static_assert(kScanThreads % 32 == 0 && kScanWarps >= 2 &&
+                  kScanThreads <= kMaxThreads,
+              "the scan needs a producer warp and a consumer warp");
+// Timing-only builds (scripts/scan_probe.py --ablate; wrong output):
+// TDE_SCAN_ABLATE 1 the consumers run no block (the producer alone), 2 nor
+// does the producer copy records (its compaction alone), 3 the producer
+// does nothing after the first step (the consumers alone, every step on the
+// first step's blocks).
+#ifndef TDE_SCAN_ABLATE
+#define TDE_SCAN_ABLATE 0
+#endif
+constexpr int kMaxAwWords = 5;  // feed.AVAIL_WORDS
+// The most slots of a size bin (feed.WAVE_CAP), by lg - 2: a step of all
+// four bins holds at most 464 blocks.
+__host__ __device__ constexpr int max_slots(int l) {
+  return l < 3 ? 256 >> l : 16;
+}
+constexpr int kMaxBlocks = 256 + 128 + 64 + 16;
+constexpr int kRecWords = kMaxBlocks * (6 + kMaxAwWords);
+constexpr int kBorderWords = 132;  // a warp's borders: at most 4 * 32 + 1
+#ifdef TDE_SCAN_STAMPS
+constexpr int kPhases = 5;  // clock64() stamps
+#endif
 
 // One (plane, size) bin of the scan records, as _scatter_intra_bins builds
 // them; depth 0: no bin of this size in the plane.  The records and the
-// residual rows are 16-byte aligned and K is a multiple of 4 (K = WAVE_CAP),
-// so that every copy below moves 16 bytes.
+// residual rows are 16-byte aligned and K is a multiple of 4, so that every
+// copy of the records moves 16 bytes and every residual read a quad.
 struct ScanBin {
   const int32_t* meta;  // [rows, K, 5]
   const int32_t* rrow;  // [rows, K]
@@ -142,182 +176,242 @@ struct ScanPlane {
   ScanBin bins[4];  // by lg - 2
 };
 
-// Passed by value (ops/intra_cuda.py builds it as a ctypes struct).
+// Passed by value (ops/intra_cuda.py builds it as a ctypes struct).  The
+// CTA runs steps first_step .. nsteps - 1 of its plane; stamps: [n_planes,
+// kMaxWarps, 5] cycles, written only by a build with TDE_SCAN_STAMPS
+// defined (scripts/scan_probe.py).
 struct ScanArgs {
   ScanPlane planes[3];
-  // angular tables [35, s*s] by lg - 2, packed: P0 | (P1 + 1) << 9 |
-  // WT << 18 (ops/intra_cuda.packed_mode_table)
-  const int32_t* PT[4];
-  int n_planes, pad_t, pad_l, aw_words;
+  long long* stamps;
+  int n_planes, pad_t, pad_l, aw_words, first_step;
 };
 
-constexpr int kRecWords = kMaxSlots * (6 + kMaxAwWords);
+// A step's valid blocks as the producer warp leaves them, bin by bin, a
+// field an array (consecutive blocks in consecutive banks): everything
+// about them that does not depend on the plane.  flags: 1 unavailable |
+// 2 filter | 4 strong.
+struct StepBlocks {
+  int y0p[kMaxBlocks], x0p[kMaxBlocks], mode[kMaxBlocks], edge[kMaxBlocks];
+  int flags[kMaxBlocks], rrow[kMaxBlocks], angle[kMaxBlocks];
+  int inv[kMaxBlocks];
+  uint32_t aw[kMaxAwWords][kMaxBlocks];
+  int nv[4];  // valid blocks of each bin
+};
 
-// Dynamic shared memory (about 130 KB), one CTA per SM.
+// Dynamic shared memory (about 143 KB), one CTA per SM.
 struct ScanSmem {
-  int res[kMaxPixels];  // the residual blocks of the step's valid slots
-  int b[kBorderElems];  // substituted borders of the step's valid blocks
-  int f[kBorderElems];  // filtered borders
-  // raw records of a (step, bin), two buffers: meta [K, 5] (mode, edge,
-  // y0, x0, flags 1 unavailable | 2 filter | 4 strong | 8 valid), rrow
-  // [K], aw [K, aw_words]
+  // raw records of a step, bins of depth > step in order: meta [K, 5],
+  // rrow [K], aw [K, aw_words]; two buffers
   int rec[2][kRecWords];
-  int mode[kMaxSlots], edge[kMaxSlots], y0p[kMaxSlots], x0p[kMaxSlots];
-  int flags[kMaxSlots], rrow[kMaxSlots], dc[kMaxSlots];
-  uint32_t aw[kMaxSlots][kMaxAwWords];
-  int wcnt[kScanThreads / 32];
+  StepBlocks blk[2];
+  // a warp's borders: substituted (then the angular reference array),
+  // filtered
+  int bord[kScanWarps][2][kBorderWords];
+  int angle[35], inv[35];  // intraPredAngle and invAngle by mode
 };
 
-// The scan's dynamic shared memory.
 __device__ __forceinline__ ScanSmem& scan_smem() {
   extern __shared__ __align__(16) unsigned char smem[];
   return *reinterpret_cast<ScanSmem*>(smem);
 }
 
-// The records of a (step, bin) into a shared buffer by asynchronous copies
-// of 16 bytes (one commit group).  They do not depend on the plane, so the
-// next (step, bin)'s are copied while this one computes.
-__device__ __forceinline__ void fetch_rec(const ScanBin& B, int step,
-                                          int aw_words, int* dst) {
-  const int K = B.K, n5 = 5 * K, n6 = 6 * K, nall = (6 + aw_words) * K;
-  const int32_t* meta = B.meta + (long long)step * n5;
-  const int32_t* rrow = B.rrow + (long long)step * K;
-  const int32_t* aw = B.aw + (long long)step * K * aw_words;
-  for (int i = 4 * threadIdx.x; i < nall; i += 4 * kScanThreads)
-    __pipeline_memcpy_async(
-        dst + i,
-        i < n5 ? meta + i : i < n6 ? rrow + (i - n5) : aw + (i - n6), 16);
-  __pipeline_commit();
-}
+__constant__ int kAngle[35] = {0,   0,   32,  26,  21,  17,  13,  9,  5,
+                               2,   0,   -2,  -5,  -9,  -13, -17, -21, -26,
+                               -32, -26, -21, -17, -13, -9,  -5,  -2, 0,
+                               2,   5,   9,   13,  17,  21,  26,  32};
+__constant__ int kInvAngle[35] = {
+    0,    0,    0,    0,    0,    0,    0,    0,     0,     0,    0,    -4096,
+    -1638, -910, -630, -482, -390, -315, -256, -315, -390, -482, -630, -910,
+    -1638, -4096, 0,   0,    0,    0,    0,    0,     0,     0,    0};
 
-// The (step, bin) after (i, l) in scan order: the next bin of step i whose
-// depth exceeds i, else the first such bin of a later step; i >= nsteps when
-// none is left.
-__device__ __forceinline__ void next_bin(const ScanPlane& P, int& i, int& l) {
-  for (;;) {
-    if (++l == 4) {
-      l = 0;
-      if (++i >= P.nsteps) return;
-    }
-    if (i < P.bins[l].depth) return;
+// Per-warp cycle counts of the phases of a step (a TDE_SCAN_STAMPS build):
+// 0 the block barrier, 1 records, residual loads and border gather, 2
+// filtering and DC sums, 3 prediction and stores, 4 the producer's work.
+struct Stamps {
+#ifdef TDE_SCAN_STAMPS
+  long long acc[kPhases];
+  long long last;
+  __device__ void begin() {
+    for (int p = 0; p < kPhases; ++p) acc[p] = 0;
+    last = clock64();
+  }
+  __device__ void mark(int p) {
+    const long long now = clock64();
+    acc[p] += now - last;
+    last = now;
+  }
+#else
+  __device__ void begin() {}
+  __device__ void mark(int) {}
+#endif
+};
+
+// The records of step t (bins of depth > t) into a shared buffer by
+// asynchronous copies of 16 bytes, by one warp (the caller commits them).
+__device__ __forceinline__ void fetch_step(const ScanPlane& P, int t,
+                                           int aw_words, int* dst) {
+  const int lane = threadIdx.x & 31;
+  for (int l = 0; l < 4; ++l) {
+    const ScanBin& B = P.bins[l];
+    if (t >= B.depth) continue;
+    const int K = B.K, n5 = 5 * K, n6 = 6 * K, nall = (6 + aw_words) * K;
+    const int32_t* meta = B.meta + (long long)t * n5;
+    const int32_t* rrow = B.rrow + (long long)t * K;
+    const int32_t* aw = B.aw + (long long)t * K * aw_words;
+    for (int i = 4 * lane; i < nall; i += 128)
+      __pipeline_memcpy_async(
+          dst + i,
+          i < n5 ? meta + i : i < n6 ? rrow + (i - n5) : aw + (i - n6), 16);
+    dst += nall;
   }
 }
 
-// The valid slots of a (step, bin) compacted into shared memory by a
-// block-wide ballot; returns their number (uniform over the CTA).  Its two
-// barriers also order the previous (step, bin)'s stores to the plane and
-// reads of shared memory before this one's.
-__device__ __forceinline__ int compact(const int* rec, int K, int aw_words,
-                                       int pad_t, int pad_l, ScanSmem& sm) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int* m = rec + 5 * tid;
-  const bool v = tid < K && (m[4] & 8);
-  const unsigned bal = __ballot_sync(0xffffffffu, v);
-  if (lane == 0) sm.wcnt[warp] = __popc(bal);
-  __syncthreads();
-  int nv = 0, off = 0;
-  for (int w = 0; w < (K + 31) >> 5; ++w) {
-    const int c = sm.wcnt[w];
-    nv += c;
-    off += w < warp ? c : 0;
-  }
-  if (v) {
-    const int n = off + __popc(bal & ((1u << lane) - 1u));
-    sm.mode[n] = m[0];
-    sm.edge[n] = m[1];
-    sm.y0p[n] = m[2] + pad_t;
-    sm.x0p[n] = m[3] + pad_l;
-    sm.flags[n] = m[4];
-    sm.rrow[n] = rec[5 * K + tid];
-    sm.dc[n] = 0;
-    const int* aw = rec + 6 * K + tid * aw_words;
+// The valid slots of step t (its records in rec, as fetch_step left them)
+// compacted by one warp into blk, bin by bin, with their counts; the
+// angles from the shared copies of the tables (sm.angle, sm.inv).
+__device__ __forceinline__ void compact_step(const ScanPlane& P, int t,
+                                             const ScanArgs& a,
+                                             const int* rec, StepBlocks& blk,
+                                             const ScanSmem& sm) {
+  const int lane = threadIdx.x & 31, aw_words = a.aw_words;
+  int n = 0;
+  for (int l = 0; l < 4; ++l) {
+    const ScanBin& B = P.bins[l];
+    const int n0 = n;
+    if (t < B.depth) {
+      const int K = B.K;
+      for (int s0 = 0; s0 < K; s0 += 32) {
+        const int slot = s0 + lane;
+        const int* m = rec + 5 * slot;
+        const bool v = slot < K && (m[4] & 8);
+        const unsigned bal = __ballot_sync(0xffffffffu, v);
+        if (v) {
+          const int b = n + __popc(bal & ((1u << lane) - 1u));
+          const int mode = min(max(m[0], 0), 34);
+          blk.y0p[b] = m[2] + a.pad_t;
+          blk.x0p[b] = m[3] + a.pad_l;
+          blk.mode[b] = m[0];
+          blk.edge[b] = m[1];
+          blk.flags[b] = m[4];
+          blk.rrow[b] = rec[5 * K + slot];
+          blk.angle[b] = sm.angle[mode];
+          blk.inv[b] = sm.inv[mode];
+          const int* aw = rec + 6 * K + slot * aw_words;
 #pragma unroll
-    for (int q = 0; q < kMaxAwWords; ++q)
-      sm.aw[n][q] = q < aw_words ? (uint32_t)aw[q] : 0u;
+          for (int q = 0; q < kMaxAwWords; ++q)
+            blk.aw[q][b] = q < aw_words ? (uint32_t)aw[q] : 0u;
+        }
+        n += __popc(bal);
+      }
+      rec += (6 + aw_words) * K;
+    }
+    if (lane == 0) blk.nv[l] = n - n0;
   }
-  __syncthreads();
-  return nv;
 }
 
 // The border index whose sample substitution (8.4.4.2.2) puts at j: the
 // last available one at or before j, else the first available one; -1 if
-// none is available.  A bit search over the availability words, so every
-// sample finds its source at once instead of along a 4s+1 chain.
-__device__ __forceinline__ int avail_source(const uint32_t* aw, int j,
+// none is available.  A bit search over the AW availability words held in
+// registers, so every sample finds its source at once.
+template <int AW>
+__device__ __forceinline__ int avail_source(const uint32_t (&aw)[AW], int j,
                                             int nb) {
-  int w = j >> 5;
-  uint32_t m = aw[w] & (0xffffffffu >> (31 - (j & 31)));
-  for (;;) {
-    if (m) return (w << 5) + 31 - __clz(m);
-    if (--w < 0) break;
-    m = aw[w];
+  int src = -1;
+#pragma unroll
+  for (int w = 0; w < AW; ++w) {
+    uint32_t m = aw[w];
+    if (w == (j >> 5)) m &= 0xffffffffu >> (31 - (j & 31));
+    if (w <= (j >> 5) && m) src = (w << 5) + 31 - __clz(m);
   }
-  for (w = 0; (w << 5) < nb; ++w) {
-    m = aw[w];
+  if (src >= 0) return src;
+#pragma unroll
+  for (int w = AW - 1; w >= 0; --w) {
+    uint32_t m = aw[w];
     const int rem = nb - (w << 5);
     if (rem < 32) m &= (1u << rem) - 1u;
-    if (m) return (w << 5) + __ffs(m) - 1;
+    if (m) src = (w << 5) + __ffs(m) - 1;
   }
-  return -1;
+  return src;
 }
 
-// The work of one (step, bin) after its compaction: the residual blocks
-// copied to shared memory asynchronously, then three passes over (block,
-// sample) work items with a barrier after the first two: gather (B6's
-// border_sample) + substitution, filtering (+ the DC sums), prediction +
-// residual + store (B7's store_sample, or four samples at once).  A pass
-// issues all of a thread's loads before it uses the first.  The records,
-// residual rows and tables are never written, so they are read through the
-// read-only path; the plane is not (border_sample).
+// The blocks of one task: blocks n0 .. n0 + nblk - 1 (nblk 1 .. 32 / G) of
+// a step, of size 2^LG and bin B, G lanes a block, run by one warp from
+// gather to store: the residual quads and the border samples loaded at
+// once, the substituted border and its filtered copy in the warp's shared
+// memory (bord) between __syncwarp()s, the DC sum over the block's lanes by
+// shuffles, and for an angular mode the spec's reference array ref[-S ..
+// 2S + 1] (8.4.4.2.6, the projection by invAngle included) built from the
+// filtered border in place of the substituted one, so that a sample reads
+// two entries at an index of its row (vertical modes) or column.  The
+// warp's border memory (bord) is the one its previous block used.
 template <int LG>
-__device__ __forceinline__ void scan_bin(const ScanArgs& a,
-                                         const ScanPlane& P, const ScanBin& B,
-                                         int nv, ScanSmem& sm) {
+__device__ __forceinline__ void run_blocks(const ScanPlane& P,
+                                           const ScanBin& B,
+                                           const StepBlocks& blk, int n0,
+                                           int nblk, int* bord,
+                                           Stamps& st) {
   constexpr int S = 1 << LG, N2 = 2 * S, NB = 4 * S + 1, SS = S * S;
-  constexpr int NT = kScanThreads;
-  const int tid = threadIdx.x;
-  int32_t* plane = P.plane;
+  constexpr int G = LG == 2 ? 8 : LG == 3 ? 16 : 32;  // lanes a block
+  constexpr int U = (NB + G - 1) / G;                // border samples a lane
+  constexpr int Q = SS / 4;                          // quads a block
+  constexpr int QL = (Q + G - 1) / G;                // quads a lane
+  constexpr int AW = (NB + 31) / 32;                 // availability words
+  const int lane = threadIdx.x & 31, lig = lane % G, grp = lane / G;
+  const bool act = grp < nblk;
+  const int n = n0 + (act ? grp : 0);
+  const int y0p = blk.y0p[n], x0p = blk.x0p[n], flags = blk.flags[n];
+  const int rr = blk.rrow[n];
   const int bd = P.bit_depth, maxv = (1 << bd) - 1;
+  int32_t* plane = P.plane;
+  __syncwarp();  // the warp's previous block has read bord
 
-  // ---- residual blocks into shared memory, 16 bytes a copy (zeros for a
-  // slot without one)
-  for (int it = tid; it < nv * SS / 4; it += NT) {
-    const int rr = sm.rrow[it >> (2 * LG - 2)];
-    const int32_t* src = B.res + (long long)min(max(rr, 0), B.n_res - 1) * SS +
-                         4 * (it & (SS / 4 - 1));
-    __pipeline_memcpy_async(&sm.res[4 * it], src, 16, rr >= 0 ? 0 : 16);
-  }
-  __pipeline_commit();
-
-  // ---- border gather (B6's function) with the substitution folded in:
-  // each sample reads its source sample straight from the plane
-  int val[kBorderPerThread];
+  // residual quads (read-only, never written by the scan) and border
+  // samples: all loads issued before the first use.  A 32x32 block's lane
+  // loads each of its eight quads where it uses it instead: held ahead,
+  // they cost the kernel's other paths registers (spills).
+  constexpr int QP = QL <= 2 ? QL : 0;  // quads a lane loads ahead
+  const int32_t* rsrc =
+      B.res + (long long)min(max(rr, 0), B.n_res - 1) * SS;
+  int4 res[QP > 0 ? QP : 1];
 #pragma unroll
-  for (int u = 0; u < kBorderPerThread; ++u) {
-    const int it = tid + u * NT;
+  for (int u = 0; u < QP; ++u) {
+    const int q = lig + G * u;
+    res[u] = make_int4(0, 0, 0, 0);
+    if (act && q < Q && rr >= 0)
+      res[u] = __ldg(reinterpret_cast<const int4*>(rsrc + 4 * q));
+  }
+  uint32_t aw[AW];
+#pragma unroll
+  for (int w = 0; w < AW; ++w) aw[w] = blk.aw[w][n];
+  int val[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int j = lig + G * u;
     val[u] = 0;
-    if (it < nv * NB) {
-      const int n = it / NB, j = it - n * NB;
-      if (sm.flags[n] & 1) {
+    if (act && j < NB) {
+      if (flags & 1) {
         val[u] = 1 << (bd - 1);
       } else {
-        const int src = avail_source(sm.aw[n], j, NB);
+        const int src = avail_source(aw, j, NB);
         if (src >= 0)
-          val[u] = border_sample(plane, P.Hp, P.Wp, sm.y0p[n], sm.x0p[n], S,
-                                 src);
+          val[u] = border_sample(plane, P.Hp, P.Wp, y0p, x0p, S, src);
       }
     }
   }
+  int* b = bord + grp * NB;
+  int* f = bord + kBorderWords + grp * NB;
 #pragma unroll
-  for (int u = 0; u < kBorderPerThread; ++u)
-    if (tid + u * NT < nv * NB) sm.b[tid + u * NT] = val[u];
-  __syncthreads();
+  for (int u = 0; u < U; ++u)
+    if (act && lig + G * u < NB) b[lig + G * u] = val[u];
+  __syncwarp();
+  st.mark(1);
 
-  // ---- filtering (8.4.4.2.3) and the DC sums of DC-mode blocks
-  for (int it = tid; it < nv * NB; it += NT) {
-    const int n = it / NB, j = it - n * NB;
-    const int* b = sm.b + n * NB;
-    const int flags = sm.flags[n];
+  // filtering (8.4.4.2.3) and the DC sum
+  int dcs = 0;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int j = lig + G * u;
+    if (!act || j >= NB) continue;
     int v = b[j];
     bool bilinear = false;
     if (S == 32 && (flags & 4)) {
@@ -333,47 +427,55 @@ __device__ __forceinline__ void scan_bin(const ScanArgs& a,
     } else if ((flags & 2) && j > 0 && j < NB - 1) {
       v = (b[j - 1] + 2 * b[j] + b[j + 1] + 2) >> 2;
     }
-    sm.f[it] = v;
-    if (sm.mode[n] == 1 && j >= N2 - S && j <= N2 + S && j != N2)
-      atomicAdd(&sm.dc[n], v);
+    f[j] = v;
+    if (j >= N2 - S && j <= N2 + S && j != N2) dcs += v;
   }
-  __pipeline_wait_prior(0);
-  __syncthreads();
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1)
+    dcs += __shfl_xor_sync(0xffffffffu, dcs, o);
+  __syncwarp();
+  st.mark(2);
 
-  // ---- prediction, residual add, clip, store (B7's function).  A work
-  // item is a quad, four adjacent samples of one block row, so that its
-  // table entries, its residual and its store move 16 bytes at once; a
-  // thread loads the table entries of all its quads before it uses the
-  // first.
-  const int32_t* PT = a.PT[LG - 2];
-  const int nq = nv * SS / 4;
-  const bool vec_store = ((uintptr_t)plane & 15) == 0 && (P.Wp & 3) == 0;
-  int4 tab[kQuadsPerThread];
+  // the reference array of an angular mode: ref[i] at b[i + S]
+  const int mode = blk.mode[n], edge = blk.edge[n], angle = blk.angle[n];
+  const bool vert = mode >= 18;
+  if (act && mode >= 2) {
+    const int inv = blk.inv[n];
 #pragma unroll
-  for (int u = 0; u < kQuadsPerThread; ++u) {
-    const int it = tid + u * NT;
-    const int mode = it < nq ? sm.mode[it >> (2 * LG - 2)] : 0;
-    tab[u] = mode >= 2 ? __ldg(reinterpret_cast<const int4*>(
-                             PT + min(mode, 34) * SS + 4 * (it & (SS / 4 - 1))))
-                       : make_int4(0, 0, 0, 0);
+    for (int u = 0; u < (3 * S + 2 + G - 1) / G; ++u) {
+      const int r = lig + G * u, i = r - S;
+      if (r >= 3 * S + 2) continue;
+      int j;
+      if (i >= 0) {
+        j = vert ? N2 + i : N2 - i;
+      } else {
+        const int off = (i * inv + 128) >> 8;
+        j = vert ? max(N2 - off, 0) : min(N2 + off, 4 * S);
+      }
+      b[r] = j >= 0 && j < NB ? f[j] : 0;
+    }
   }
+  __syncwarp();
+
+  // prediction, residual add, clip and store, a quad (four samples of a
+  // block row) at a time
+  const int dc = (dcs + S) >> (LG + 1);
+  const bool vec_store = ((uintptr_t)plane & 15) == 0 && (P.Wp & 3) == 0;
 #pragma unroll
-  for (int u = 0; u < kQuadsPerThread; ++u) {
-    const int it = tid + u * NT;
-    if (it >= nq) continue;
-    const int n = it >> (2 * LG - 2), q = it & (SS / 4 - 1);
+  for (int u = 0; u < QL; ++u) {
+    const int q = lig + G * u;
+    if (!act || q >= Q) continue;
     const int y = q >> (LG - 2), x0 = 4 * (q & (S / 4 - 1));
-    const int* f = sm.f + n * NB;
-    const int mode = sm.mode[n], edge = sm.edge[n];
     const int corner = f[N2], left = f[N2 - 1 - y];
-    const int4 rv = *reinterpret_cast<const int4*>(&sm.res[4 * it]);
+    const int4 rv =  // (the index is clamped only for the compiler)
+        u < QP ? res[u < QP ? u : 0]
+        : rr >= 0 ? __ldg(reinterpret_cast<const int4*>(rsrc + 4 * q))
+                  : make_int4(0, 0, 0, 0);
     const int res4[4] = {rv.x, rv.y, rv.z, rv.w};
-    const int pt4[4] = {tab[u].x, tab[u].y, tab[u].z, tab[u].w};
-    const int dc = (sm.dc[n] + S) >> (LG + 1);
     int out[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int x = x0 + k;
+    for (int c = 0; c < 4; ++c) {
+      const int x = x0 + c;
       int pred;
       if (mode == 0) {  // planar
         pred = ((S - 1 - x) * left + (x + 1) * f[N2 + 1 + S] +
@@ -389,101 +491,171 @@ __device__ __forceinline__ void scan_bin(const ScanArgs& a,
           else if (x == 0)
             pred = (left + 3 * dc + 2) >> 2;
         }
-      } else {  // angular
-        const int pt = pt4[k];
-        const int p0 = pt & 511, p1 = ((pt >> 9) & 511) - 1, wt = pt >> 18;
-        const int g0 = (p0 >= 0 && p0 < NB) ? f[p0] : 0;
-        const int g1 = (p1 >= 0 && p1 < NB) ? f[p1] : 0;
-        pred = ((32 - wt) * g0 + wt * g1 + 16) >> 5;
+      } else {  // angular: ref[i0], ref[i0 + 1] with i0 = idx + 1 + x (y)
+        const int t = ((vert ? y : x) + 1) * angle, wt = t & 31;
+        const int* r = b + S + (t >> 5) + 1 + (vert ? x : y);
+        pred = ((32 - wt) * r[0] + wt * r[1] + 16) >> 5;
         if (S < 32 && edge == 2 && x == 0)
           pred = min(max(f[N2 + 1] + ((left - corner) >> 1), 0), maxv);
         else if (S < 32 && edge == 3 && y == 0)
           pred = min(max(f[N2 - 1] + ((f[N2 + 1 + x] - corner) >> 1), 0),
                      maxv);
       }
-      out[k] = min(max(pred + res4[k], 0), maxv);
+      out[c] = min(max(pred + res4[c], 0), maxv);
     }
-    const int yy = sm.y0p[n] + y, xx = sm.x0p[n] + x0;
+    const int yy = y0p + y, xx = x0p + x0;
     int32_t* dst = plane + (long long)yy * P.Wp + xx;
     if (vec_store && yy >= 0 && yy < P.Hp && xx >= 0 && xx + 3 < P.Wp) {
       *reinterpret_cast<int4*>(dst) = make_int4(out[0], out[1], out[2],
                                                 out[3]);
     } else {
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        store_sample(plane, P.Hp, P.Wp, yy, xx + k, out[k]);
+      for (int c = 0; c < 4; ++c)
+        store_sample(plane, P.Hp, P.Wp, yy, xx + c, out[c]);
     }
   }
+  st.mark(3);
 }
 
-// A compacted (step, bin) of size bin l (lg - 2) with nv valid slots; for
-// none, only the wait for the pending copies and a barrier.
-__device__ __forceinline__ void run_bin(const ScanArgs& a, const ScanPlane& P,
-                                        int l, int nv, ScanSmem& sm) {
-  const ScanBin& B = P.bins[l];
-  switch (nv > 0 ? l : -1) {
-    case 0: scan_bin<2>(a, P, B, nv, sm); break;
-    case 1: scan_bin<3>(a, P, B, nv, sm); break;
-    case 2: scan_bin<4>(a, P, B, nv, sm); break;
-    case 3: scan_bin<5>(a, P, B, nv, sm); break;
-    default:
-      __pipeline_wait_prior(0);
-      __syncthreads();
+// A consumer warp's share of a step: tasks of the largest size first, a
+// task the blocks of one bin that one warp runs together (four 4x4, two
+// 8x8, one 16x16 or 32x32), task k to consumer warp k % ncons.
+__device__ __forceinline__ void run_step(const ScanPlane& P,
+                                         const StepBlocks& blk, int warp,
+                                         int ncons, int* bord, Stamps& st) {
+  int nv[4], off[4], n = 0;
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+    nv[l] = blk.nv[l];
+    off[l] = n;
+    n += nv[l];
+  }
+  int task = warp, base = 0;
+#pragma unroll
+  for (int l = 3; l >= 0; --l) {
+    const int per = l == 0 ? 4 : l == 1 ? 2 : 1;
+    const int ntask = (nv[l] + per - 1) / per;
+    for (; task < base + ntask; task += ncons) {
+      const int i = (task - base) * per, kb = off[l] + i;
+      const int nb = min(per, nv[l] - i);
+      switch (l) {
+        case 0: run_blocks<2>(P, P.bins[0], blk, kb, nb, bord, st); break;
+        case 1: run_blocks<3>(P, P.bins[1], blk, kb, nb, bord, st); break;
+        case 2: run_blocks<4>(P, P.bins[2], blk, kb, nb, bord, st); break;
+        default: run_blocks<5>(P, P.bins[3], blk, kb, nb, bord, st);
+      }
+    }
+    base += ntask;
   }
 }
 
-// One CTA per plane walks the plane's (step, bin) pairs in scan order:
-// compaction, then the copy of the next pair's records started, then this
-// pair's work.  The next compaction's barriers separate this pair's stores
-// from the next pair's gather; the wait before this pair's prediction (or
-// the one in run_bin, for a pair without valid slots) covers the records'
-// copy.
+// One CTA per plane walks steps first_step .. nsteps - 1.  The last warp
+// (the producer) starts the copy of step i + 2's records, then compacts
+// step i + 1's, copied a step earlier, while the other warps (the
+// consumers) run step i from the blocks it compacted one step before.  The
+// one block barrier a step makes step i's stores to the plane visible to
+// step i + 1's gather, and the producer's compaction to the consumers.
+// Each step's copy is one commit group, an empty one where no step is
+// left, so that waiting for all but the newest group waits for the step to
+// be compacted.
 __global__ void __launch_bounds__(kScanThreads, 1)
 intra_scan_kernel(const __grid_constant__ ScanArgs a) {
   ScanSmem& sm = scan_smem();
   const ScanPlane& P = a.planes[blockIdx.x];
-  if (P.nsteps <= 0) return;
-  int i = 0, l = -1;
-  next_bin(P, i, l);
-  int buf = 0;
-  fetch_rec(P.bins[l], i, a.aw_words, sm.rec[0]);
-  __pipeline_wait_prior(0);
-  __syncthreads();
-  while (i < P.nsteps) {
-    const int nv = compact(sm.rec[buf], P.bins[l].K, a.aw_words, a.pad_t,
-                           a.pad_l, sm);
-    int ni = i, nl = l;
-    next_bin(P, ni, nl);
-    if (ni < P.nsteps) fetch_rec(P.bins[nl], ni, a.aw_words, sm.rec[buf ^ 1]);
-    run_bin(a, P, l, nv, sm);
-    buf ^= 1;
-    i = ni;
-    l = nl;
+  const int first = a.first_step, last = P.nsteps;
+  if (last <= first) return;
+  const int warp = threadIdx.x >> 5;
+  const bool producer = warp == kScanWarps - 1;
+  Stamps st;
+  st.begin();
+  if (producer) {
+    const int lane = threadIdx.x & 31;
+    for (int m = lane; m < 35; m += 32) {
+      sm.angle[m] = kAngle[m];
+      sm.inv[m] = kInvAngle[m];
+    }
+    fetch_step(P, first, a.aw_words, sm.rec[first & 1]);
+    __pipeline_commit();
+    if (first + 1 < last)
+      fetch_step(P, first + 1, a.aw_words, sm.rec[(first + 1) & 1]);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);
+    __syncwarp();
+    compact_step(P, first, a, sm.rec[first & 1], sm.blk[first & 1], sm);
+    if (TDE_SCAN_ABLATE == 3) {
+      __pipeline_wait_prior(0);
+      compact_step(P, first, a, sm.rec[first & 1], sm.blk[(first + 1) & 1],
+                   sm);
+    }
   }
+  __syncthreads();
+  st.mark(0);
+  for (int i = first; i < last; ++i) {
+    const int q = i & 1;
+    if (!producer) {
+      if (TDE_SCAN_ABLATE != 1 && TDE_SCAN_ABLATE != 2)
+        run_step(P, sm.blk[q], warp, kScanWarps - 1, sm.bord[warp][0], st);
+    } else if (TDE_SCAN_ABLATE != 3) {
+      if (i + 2 < last && TDE_SCAN_ABLATE != 2)
+        fetch_step(P, i + 2, a.aw_words, sm.rec[q]);
+      __pipeline_commit();
+      if (i + 1 < last) {
+        __pipeline_wait_prior(1);
+        __syncwarp();
+        compact_step(P, i + 1, a, sm.rec[q ^ 1], sm.blk[q ^ 1], sm);
+      }
+      st.mark(4);
+    }
+    __syncthreads();
+    st.mark(0);
+  }
+#ifdef TDE_SCAN_STAMPS
+  if ((threadIdx.x & 31) == 0 && a.stamps)
+    for (int p = 0; p < kPhases; ++p)
+      a.stamps[((long long)blockIdx.x * kMaxWarps + warp) * kPhases + p] =
+          st.acc[p];
+#endif
 }
 
-// The fused step: the scan's body on one (step, bin) of plane 0, one CTA.
-__global__ void __launch_bounds__(kScanThreads, 1)
-intra_step_kernel(const __grid_constant__ ScanArgs a, int step, int l) {
-  ScanSmem& sm = scan_smem();
-  const ScanPlane& P = a.planes[0];
-  fetch_rec(P.bins[l], step, a.aw_words, sm.rec[0]);
-  __pipeline_wait_prior(0);
+// The least latency of one dependent step of the scan on this card: rounds
+// of (store, block barrier, load of the sample that the next warp stored,
+// store), through shared memory (mode 0), through global memory with the
+// scan's loads (mode 1: ld.global, cached in L1) or with loads from L2
+// (mode 2: ld.global.cg).  buf holds 2 * blockDim.x ints; cycles gets the
+// clock64() span of the rounds.
+__global__ void __launch_bounds__(kMaxThreads)
+chain_probe_kernel(int32_t* buf, int rounds, int mode, long long* cycles) {
+  __shared__ int sh[2 * kMaxThreads];
+  const int t = threadIdx.x, n = blockDim.x, src = (t + 32) % n;
+  int v = t;
   __syncthreads();
-  run_bin(a, P, l,
-          compact(sm.rec[0], P.bins[l].K, a.aw_words, a.pad_t, a.pad_l, sm),
-          sm);
+  const long long c0 = clock64();
+  for (int r = 0; r < rounds; ++r) {
+    const int o = (r & 1) * n;
+    if (mode == 0) {
+      sh[o + t] = v;
+      __syncthreads();
+      v = sh[o + src] + 1;
+    } else {
+      buf[o + t] = v;
+      __syncthreads();
+      v = (mode == 1 ? buf[o + src] : __ldcg(buf + o + src)) + 1;
+    }
+  }
+  const long long c1 = clock64();
+  buf[(rounds & 1) * n + t] = v;
+  if (t == 0) *cycles = c1 - c0;
 }
 
 bool size_ok(int s) { return s == 4 || s == 8 || s == 16 || s == 32; }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-// The checks of both scan entry points: sizes within the shared memory,
-// pointers present and 16-byte aligned, K a multiple of 4.
+// The checks of both scan entry points: bin widths within the shared
+// memory, pointers present and 16-byte aligned, K a multiple of 4.
 bool scan_args_ok(const ScanArgs& a) {
   if (a.n_planes < 1 || a.n_planes > 3 || a.aw_words < 1 ||
-      a.aw_words > kMaxAwWords)
+      a.aw_words > kMaxAwWords || a.first_step < 0)
     return false;
   for (int c = 0; c < a.n_planes; ++c) {
     const ScanPlane& P = a.planes[c];
@@ -491,25 +663,25 @@ bool scan_args_ok(const ScanArgs& a) {
       return false;
     for (int l = 0; l < 4; ++l) {
       const ScanBin& B = P.bins[l];
-      const int nb = 4 * (4 << l) + 1, ss = (4 << l) * (4 << l);
       if (B.depth <= 0) continue;
-      if (B.K <= 0 || B.K > kMaxSlots || (B.K & 3) || B.K * nb > kBorderElems ||
-          B.K * ss > kMaxPixels || B.n_res <= 0 || a.aw_words * 32 < nb ||
-          !B.meta || !B.rrow || !B.aw || !B.res || !a.PT[l] ||
-          !aligned16(B.meta) || !aligned16(B.rrow) || !aligned16(B.aw) ||
-          !aligned16(B.res) || !aligned16(a.PT[l]))
+      if (B.K <= 0 || B.K > max_slots(l) || (B.K & 3) || B.n_res <= 0 ||
+          a.aw_words * 32 < 4 * (4 << l) + 1 || !B.meta || !B.rrow ||
+          !B.aw || !B.res || !aligned16(B.meta) || !aligned16(B.rrow) ||
+          !aligned16(B.aw) || !aligned16(B.res))
         return false;
     }
   }
   return true;
 }
 
-// Both kernels take about 130 KB of dynamic shared memory.
-template <typename Kernel>
-cudaError_t allow_scan_smem(Kernel kernel) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)sizeof(ScanSmem));
+cudaError_t launch_scan(const ScanArgs& a, cudaStream_t stream) {
+  static const cudaError_t smem_ok = cudaFuncSetAttribute(
+      intra_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(ScanSmem));
+  if (smem_ok != cudaSuccess) return smem_ok;
+  intra_scan_kernel<<<a.n_planes, kScanThreads, sizeof(ScanSmem), stream>>>(
+      a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -545,28 +717,40 @@ extern "C" int tde_window_scatter(void* plane, int Hp, int Wp,
 }
 
 // The whole scan of a picture in one launch: one CTA per plane walks steps
-// 0 .. nsteps-1 of its plane, each bin whose depth exceeds the step.
+// first_step .. nsteps-1 of its plane, each bin whose depth exceeds the
+// step.
 extern "C" int tde_intra_scan(const void* args, void* stream) {
   const ScanArgs& a = *(const ScanArgs*)args;
   if (!scan_args_ok(a)) return (int)cudaErrorInvalidValue;
-  static const cudaError_t smem_ok = allow_scan_smem(intra_scan_kernel);
-  if (smem_ok != cudaSuccess) return (int)smem_ok;
-  intra_scan_kernel<<<a.n_planes, kScanThreads, sizeof(ScanSmem),
-                      (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return (int)launch_scan(a, (cudaStream_t)stream);
 }
 
 // One (step, bin) of plane 0 of the same arguments: bins[lg - 2], `step`
-// below its depth.
+// below its depth; the scan kernel on that step and bin alone.
 extern "C" int tde_intra_step(const void* args, int step, int lg,
                               void* stream) {
-  const ScanArgs& a = *(const ScanArgs*)args;
+  ScanArgs a = *(const ScanArgs*)args;
   if (lg < 2 || lg > 5 || step < 0 || a.n_planes != 1 || !scan_args_ok(a) ||
       step >= a.planes[0].bins[lg - 2].depth)
     return (int)cudaErrorInvalidValue;
-  static const cudaError_t smem_ok = allow_scan_smem(intra_step_kernel);
-  if (smem_ok != cudaSuccess) return (int)smem_ok;
-  intra_step_kernel<<<1, kScanThreads, sizeof(ScanSmem),
-                      (cudaStream_t)stream>>>(a, step, lg - 2);
+  for (int l = 0; l < 4; ++l)
+    if (l != lg - 2) a.planes[0].bins[l].depth = 0;
+  a.first_step = step;
+  a.planes[0].nsteps = step + 1;
+  return (int)launch_scan(a, (cudaStream_t)stream);
+}
+
+// The scan's CTA size in this build (kScanThreads).
+extern "C" int tde_scan_threads() { return kScanThreads; }
+
+// chain_probe_kernel on one CTA of `threads` threads; buf: 2 * threads
+// int32, cycles: one int64.
+extern "C" int tde_chain_probe(void* buf, int threads, int rounds, int mode,
+                               void* cycles, void* stream) {
+  if (threads < 32 || threads > kMaxThreads || (threads & 31) || rounds < 1 ||
+      mode < 0 || mode > 2)
+    return (int)cudaErrorInvalidValue;
+  chain_probe_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
+      (int32_t*)buf, rounds, mode, (long long*)cycles);
   return (int)cudaGetLastError();
 }

@@ -36,6 +36,8 @@ SIGNATURES = {
     "tde_window_scatter": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
     "tde_intra_step": [_P, _I, _I, _P],
     "tde_intra_scan": [_P, _P],
+    "tde_scan_threads": [],
+    "tde_chain_probe": [_P, _I, _I, _I, _P, _P],
     "tde_mc_stripes": [_P, _L, _I, _P, _P, _I, _I, _P, _I, _P, _I, _I, _I,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tde_paint_pu_idx": [_P, _P, _I, _P, _I, _P, _I, _I, _I, _P],
@@ -128,6 +130,34 @@ def lib() -> ct.CDLL:
                 fn.restype = ct.c_int
             _lib = L
         return _lib
+
+
+def variant(src: Path, defines) -> ct.CDLL:
+    """One source built alone with extra preprocessor definitions (e.g.
+    ``["TDE_SCAN_THREADS=256"]``) into a library of its own, cached by the
+    source, flags and definitions, and loaded with the argument types of
+    the entry points it has.  For measurement and tests, never the decode's
+    path."""
+    src = Path(src)
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    h = hashlib.sha256(" ".join(flags).encode() + src.read_bytes())
+    out = BUILD_DIR / f"{src.stem}_variant_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        r = subprocess.run([_nvcc(), *flags, "-shared", "-o", str(tmp),
+                            str(src)], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc {src.name} {defines} failed "
+                               f"({r.returncode}):\n{r.stderr}")
+        os.replace(tmp, out)
+    L = ct.CDLL(str(out))
+    for name, argtypes in SIGNATURES.items():
+        if hasattr(L, name):
+            fn = getattr(L, name)
+            fn.argtypes = argtypes
+            fn.restype = ct.c_int
+    return L
 
 
 def check_launch(name: str, rc: int):

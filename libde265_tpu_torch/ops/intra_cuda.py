@@ -8,38 +8,33 @@ The persistent scan replaces the TPU program's loop over the steps
 (``fused_decode._intra_scan_all_inner`` with ``pallas_intra``: a
 ``fori_loop`` of B6, the ``_wave_body`` math and B7).  A picture's steps
 are a chain of dependent steps (528 per plane at 1080p), each of at most
-256 small blocks, so a launch per step is bound by launch latency.  One
-CTA of 1024 threads per plane walks its plane's steps; within a step, the
-bins of the plane in turn, each with its valid slots compacted in shared
-memory and three passes over (block, sample) work items: the border gather
-with the substitution folded in (each sample finds its source by a bit
-search of the availability words), filtering with the DC sums, and
-prediction, residual add and store.  A block barrier between steps makes a
-step's stores visible to the next step: a block of step i reads only
-samples written at steps < i (the scheduler's rule, checked by
-``test_schedule_reads_only_earlier_steps``).  The records stay where
-``_scatter_intra_bins`` put them; their pointers, depths, the residual rows
-and the angular tables (packed into one word a sample,
-``packed_mode_table``) go to the kernel in one argument struct by value.
-The next (step, bin)'s records and the step's residual blocks are copied
-into shared memory asynchronously while the border gather runs; the
-prediction moves four samples (table entries, residual, store) at once.
-Bound: the bytes of the records, residual rows and stored blocks; in
-practice the chain of steps, each a few microseconds of one SM's memory
-pipeline and four barriers (PERF.md).
+464 small blocks, so a launch per step is bound by launch latency and one
+launch per picture by the chain: a step's gather reads what the step
+before stored.  One CTA of 1024 threads per plane walks its
+plane's steps with one block barrier a step (a block of step i reads only
+samples written at steps < i, the scheduler's rule, checked by
+``test_schedule_reads_only_earlier_steps``).  The CTA's last warp prepares
+the next step off that chain (records copied two steps ahead, compacted
+one step ahead); the other warps run every size bin of a step at once,
+each block from its residual and border loads to its store within one warp
+(four 4x4 blocks, two 8x8, one 16x16 or 32x32 a warp), an angular mode
+through the spec's reference array, built once a block from the mode's
+angle (no table is read).  The records stay where
+``_scatter_intra_bins`` put them; their pointers, depths and residual rows
+go to the kernel in one argument struct by value.
 
-The fused step: the same kernel body on one (plane, size, step) bin of
-the scan, one CTA, one launch per call.  It replaces the TPU program's step
+The fused step: the same kernel on one (plane, size, step) bin of the
+scan, one CTA, one launch per call.  It replaces the TPU program's step
 ``fused_decode._wave_body(pallas=True)`` (B6, the XLA math and B7 there);
 the decode no longer launches it, so ``chip_smoke.py`` and the `gpu` tests
 hold it against its plain version (``intra_step_plain``: B6's plain gather,
 ``ops.intra_wave.wave_predict``, B7's plain store).
 
-The kernels read the angular tables of ``build_mode_tables`` from
-``packed_mode_table``; the tables passed to the wrappers serve the plain
-versions.  The records and residual rows must be 16-byte aligned with K a
-multiple of 4, as ``_scatter_intra_bins`` makes them (K = WAVE_CAP): the
-kernel copies them 16 bytes at a time.
+The angular tables passed to the wrappers (``build_mode_tables``) serve the
+plain versions.  The records and residual rows must be 16-byte aligned
+with K a multiple of 4 and at most ``MAX_SLOTS[lg]``, as
+``_scatter_intra_bins`` makes them (K = WAVE_CAP): the kernel copies the
+records 16 bytes at a time and reads the residual a quad at a time.
 """
 from __future__ import annotations
 
@@ -57,9 +52,8 @@ from .intra_wave import build_mode_tables, wave_predict
 launches = 0       # fused step launches since the last reset (chip_smoke)
 scan_launches = 0  # persistent scan launches since the last reset
 
-MAX_SLOTS = 256       # csrc/intra.cu kMaxSlots: the widest bin (WAVE_CAP[2])
-BORDER_ELEMS = 4352   # csrc/intra.cu kBorderElems: K * (4s + 1) per bin
-MAX_PIXELS = 16384    # csrc/intra.cu kMaxPixels: K * s * s per bin
+# csrc/intra.cu max_slots: the most slots of a size bin by lg (WAVE_CAP)
+MAX_SLOTS = {2: 256, 3: 128, 4: 64, 5: 16}
 
 
 class _ScanBin(ct.Structure):
@@ -78,9 +72,16 @@ class _ScanPlane(ct.Structure):
 class ScanArgs(ct.Structure):
     """csrc/intra.cu ScanArgs, passed to tde_intra_scan by address and to
     the kernel by value."""
-    _fields_ = [("planes", _ScanPlane * 3), ("PT", ct.c_void_p * 4),
+    _fields_ = [("planes", _ScanPlane * 3), ("stamps", ct.c_void_p),
                 ("n_planes", ct.c_int), ("pad_t", ct.c_int),
-                ("pad_l", ct.c_int), ("aw_words", ct.c_int)]
+                ("pad_l", ct.c_int), ("aw_words", ct.c_int),
+                ("first_step", ct.c_int)]
+
+
+def scan_args(n_planes: int) -> ScanArgs:
+    """Empty arguments of the scan kernels for n_planes planes."""
+    return ScanArgs(n_planes=n_planes, pad_t=iw.PAD_T, pad_l=iw.PAD_L,
+                    aw_words=0, first_step=0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,20 +89,6 @@ def mode_tables(s: int, device: torch.device):
     """build_mode_tables(s) as int32 tensors on `device`, made once."""
     return tuple(torch.as_tensor(t, dtype=torch.int32, device=device)
                  for t in build_mode_tables(s))
-
-
-@functools.lru_cache(maxsize=None)
-def packed_mode_table(s: int, device: torch.device):
-    """build_mode_tables(s) as the one table the scan kernels read, so that
-    a sample loads one word: P0 | (P1 + 1) << 9 | WT << 18 (P0 in 0 .. 128,
-    P1 in -1 .. 129, WT in 0 .. 31); [35, s*s] int32 on `device`, made
-    once."""
-    P0, P1, WT = (np.asarray(t, np.int64) for t in build_mode_tables(s))
-    if (P0.min() < 0 or P0.max() > 511 or P1.min() < -1 or P1.max() > 510 or
-            WT.min() < 0 or WT.max() > 31):
-        raise ValueError("packed_mode_table: a table is out of range")
-    return torch.as_tensor(P0 | ((P1 + 1) << 9) | (WT << 18),
-                           dtype=torch.int32, device=device)
 
 
 def _fill_plane(a, c, plane, bit_depth, dev, name):
@@ -125,9 +112,8 @@ def _fill_bin(a, c, lg, meta, rrow, aw, res, tabs, depth, dev, name):
     if (lg not in (2, 3, 4, 5) or meta.shape != (rows, K, 5) or
             aw.dim() != 3 or aw.shape[:2] != (rows, K) or
             res.dim() != 3 or res.shape[1:] != (s, s) or
-            res.shape[0] == 0 or not 0 < K <= MAX_SLOTS or K % 4 or
-            K * (4 * s + 1) > BORDER_ELEMS or K * s * s > MAX_PIXELS or
-            aw.shape[2] * 32 < 4 * s + 1 or
+            res.shape[0] == 0 or not 0 < K <= MAX_SLOTS.get(lg, 0) or
+            K % 4 or aw.shape[2] * 32 < 4 * s + 1 or
             a.aw_words not in (0, aw.shape[2]) or
             any(t.shape != (35, s * s) for t in tabs)):
         raise ValueError(f"{name}: bad records, residual or tables of plane "
@@ -142,7 +128,6 @@ def _fill_bin(a, c, lg, meta, rrow, aw, res, tabs, depth, dev, name):
     B = a.planes[c].bins[lg - 2]
     B.meta, B.rrow, B.aw = meta.data_ptr(), rrow.data_ptr(), aw.data_ptr()
     B.res, B.n_res, B.K, B.depth = res.data_ptr(), res.shape[0], K, depth
-    a.PT[lg - 2] = packed_mode_table(s, dev).data_ptr()
 
 
 def scan_order(bins_by_plane, n_planes: int, nsteps):
@@ -177,24 +162,16 @@ def intra_scan_plain(padded_planes, bins_by_plane, bin_res, tables, nsteps,
     return padded_planes
 
 
-def intra_scan(padded_planes, bins_by_plane, bin_res, tables, nsteps,
-               bit_depths):
-    """intra_scan_plain's update: the persistent scan kernel (one launch)
-    on CUDA tensors, the plain version on CPU tensors; returns
-    padded_planes.  No launch when no bin has a step to run."""
-    global scan_launches
-    if not padded_planes:
-        return padded_planes
-    if not on_cuda("intra_scan", padded_planes[0]):
-        return intra_scan_plain(padded_planes, bins_by_plane, bin_res, tables,
-                                nsteps, bit_depths)
+def fill_scan_args(padded_planes, bins_by_plane, bin_res, tables, nsteps,
+                   bit_depths):
+    """The kernel's arguments for intra_scan's inputs on the card, checked:
+    (ScanArgs, whether any bin has a step to run)."""
     dev = padded_planes[0].device
     n_planes = len(padded_planes)
     if n_planes > 3 or len(bit_depths) < n_planes:
         raise ValueError("intra_scan: 1 to 3 planes, a bit depth each")
     total = int(np.max(nsteps)) if len(nsteps) else 0
-    a = ScanArgs(n_planes=n_planes, pad_t=iw.PAD_T, pad_l=iw.PAD_L,
-                 aw_words=0)
+    a = scan_args(n_planes)
     work = False
     for c, plane in enumerate(padded_planes):
         P = _fill_plane(a, c, plane, bit_depths[c], dev, "intra_scan")
@@ -206,6 +183,22 @@ def intra_scan(padded_planes, bins_by_plane, bin_res, tables, nsteps,
                       tables[lg], depth, dev, "intra_scan")
             P.nsteps = max(P.nsteps, depth)
             work = True
+    return a, work
+
+
+def intra_scan(padded_planes, bins_by_plane, bin_res, tables, nsteps,
+               bit_depths):
+    """intra_scan_plain's update: the persistent scan kernel (one launch)
+    on CUDA tensors, the plain version on CPU tensors; returns
+    padded_planes.  No launch when no bin has a step to run."""
+    global scan_launches
+    if not padded_planes:
+        return padded_planes
+    if not on_cuda("intra_scan", padded_planes[0]):
+        return intra_scan_plain(padded_planes, bins_by_plane, bin_res, tables,
+                                nsteps, bit_depths)
+    a, work = fill_scan_args(padded_planes, bins_by_plane, bin_res, tables,
+                             nsteps, bit_depths)
     if not work:
         return padded_planes
     rc = _build.lib().tde_intra_scan(ct.addressof(a),
@@ -251,7 +244,7 @@ def intra_step(padded, meta_all, rrow_all, aw_all, step: int, res, P0, P1,
         raise IndexError(f"intra_step: step {step} of {n_steps}")
     if K == 0:
         return padded
-    a = ScanArgs(n_planes=1, pad_t=iw.PAD_T, pad_l=iw.PAD_L, aw_words=0)
+    a = scan_args(1)
     _fill_plane(a, 0, padded, bit_depth, padded.device, "intra_step")
     lg = s.bit_length() - 1
     _fill_bin(a, 0, lg, meta_all, rrow_all, aw_all, res, (P0, P1, WT),

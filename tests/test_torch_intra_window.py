@@ -35,6 +35,7 @@ from libde265_tpu_torch import FusedDecoder
 from libde265_tpu_torch import fused_decode as tfd
 from libde265_tpu_torch.ops import intra_cuda
 from libde265_tpu_torch.ops import intra_window as iw
+from libde265_tpu_torch.ops.intra import ANGLE, INV_ANGLE
 from libde265_tpu_torch.ops.intra_wave import build_mode_tables
 
 from _torch_common import (  # noqa: F401
@@ -202,7 +203,10 @@ def test_intra_step_matches_jax_wave_body(s, bit_depth):
 def _stream_bytes(stream):
     """A test GOP by name, or "104x72": the corpus stream
     conf_window_104x72 (scripts/make_corpus.py: CTB 64, intra period 4), the
-    one geometry here with two intra block sizes per plane."""
+    one geometry here with two intra block sizes per plane; a stream's
+    bytes as they are."""
+    if isinstance(stream, bytes):
+        return stream
     if stream == "104x72":
         return (CORPUS / "conf_window_104x72.h265").read_bytes()
     return gop_bytes(stream)
@@ -384,17 +388,42 @@ def test_intra_scan_multi_size_matches_jax():
         assert not np.array_equal(g.numpy(), planes[c])
 
 
+def _kernel_angular_refs(s):
+    """The angular reference indices and weights as the scan kernel
+    computes them for each sample (csrc/intra.cu run_blocks: the border
+    index of the reference array's entry ref[i], read at i0 = idx + 1 + x
+    or y and i0 + 1): (P0, P1, WT) [35, s*s] for modes 2-34 (rows 0 and 1
+    zero: planar and DC read no table)."""
+    n2 = 2 * s
+    y, x = np.meshgrid(np.arange(s), np.arange(s), indexing="ij")
+    out = np.zeros((3, 35, s * s), np.int64)
+    for mode in range(2, 35):
+        angle, inv, vert = int(ANGLE[mode]), int(INV_ANGLE[mode]), mode >= 18
+        t = ((y if vert else x) + 1) * angle
+        i0 = (t >> 5) + 1 + (x if vert else y)
+
+        def ref(i):
+            off = (i * inv + 128) >> 8
+            neg = np.maximum(n2 - off, 0) if vert else np.minimum(n2 + off,
+                                                                  4 * s)
+            return np.where(i >= 0, n2 + i if vert else n2 - i, neg)
+
+        out[:, mode] = ref(i0).ravel(), ref(i0 + 1).ravel(), (t & 31).ravel()
+    return out
+
+
 @pytest.mark.parametrize("s", SIZES)
-def test_packed_mode_table_round_trips(s):
-    """The one-word angular table that the scan kernels read holds the JAX
-    package's three tables exactly, and is made once per size and
-    device."""
-    pt = intra_cuda.packed_mode_table(s, torch.device("cpu"))
-    assert intra_cuda.packed_mode_table(s, torch.device("cpu")) is pt
-    assert pt.shape == (35, s * s) and pt.dtype == torch.int32
-    for got, want in zip((pt & 511, ((pt >> 9) & 511) - 1, pt >> 18),
-                         jtables(s)):
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+def test_kernel_angular_reference_matches_mode_tables(s):
+    """The angular reference indices and weights that the scan kernels
+    compute from the mode's angle (transcribed from csrc/intra.cu in
+    _kernel_angular_refs) equal the port's and the JAX package's
+    build_mode_tables for every angular mode and every sample (an index
+    outside the border reads 0 in both).  The kernel itself is held
+    against its plain version by the `gpu` scan tests."""
+    got = _kernel_angular_refs(s)
+    for tabs in (build_mode_tables(s), jtables(s)):
+        for g, want in zip(got, tabs):
+            np.testing.assert_array_equal(g[2:], np.asarray(want)[2:])
 
 
 # ---------------------------------------------------------------------------
