@@ -87,10 +87,32 @@ Phases (any failure raises and the script exits non-zero):
           ones with their masks) against its plain version, exact;
        c. sharded_filter_pipeline at 1088x1928 with 4 row shards, equal
           to the single-device composition of luma_pass and to that of
-          its plain version, B8 8 times.
+          its plain version, B8 8 times;
+  8. the per-op DeviceDecoder (libde265_tpu_torch.tpu_decode: its DPB
+     over pipeline.reconstruct with the intra wavefront) and programs
+     without the native intra plan, each main-path run with the counts set
+     to 0 before it and read after it, every frame bit-exact:
+       a. the first GOP of the phase-3 1080p P-GOP (an I picture and 3
+          P pictures: an I picture takes seconds of host time here, so
+          one, not the stream's two) through DeviceDecoder() (the default
+          device) from parse-only programs: synced ms per I and P
+          picture, B8 and B9 once and B10 three times in every picture (no
+          other kernel: the rest is PyTorch), the intra wavefront's
+          intra_wave_kernel calls and host plan ms per picture, picture
+          0's B8, B9 and B10 calls against their plain versions, then one
+          P and one I picture decoded again under torch.profiler (device
+          busy ms, idle share, device operations);
+       b. the phase-6 stripe stream through DeviceDecoder(), pictures 9-11
+          (more than 8 references, which the JAX module cannot decode)
+          counted;
+       c. the phase-3 all-intra pictures with ip=None and src=None through
+          FusedDecoder(): packed by numpy with the records of
+          feed._plan_intra (its host ms per picture beside the native
+          records'), one scan launch per picture, picture 0's records
+          equal to the native plan's word for word.
 
 The kernels line's launches are the sums over the main-path runs of
-phases 3, 6 and 7.  The last three lines of stdout are the kernels JSON
+phases 3, 6, 7 and 8.  The last three lines of stdout are the kernels JSON
 object (all twelve rows: B1-B10, the fused step and the persistent scan),
 the card's nvidia-smi line and the result line {"ok": true, "device":
 {...}}.
@@ -638,6 +660,15 @@ def oracle_programs(data):
     return dec, [dec.get_program(i) for i in range(dec.num_programs())]
 
 
+def parse_only_programs(data):
+    """The programs of a parse-only decode (no planes of their own, no
+    reference planes), as PipelinedDecoder's parse thread makes them."""
+    from libde265_tpu_torch import Decoder
+    dec = Decoder(parse_only=True, keep_programs=True)
+    list(dec.decode_all(data))
+    return [dec.get_program(i) for i in range(dec.num_programs())]
+
+
 def assert_bit_exact(outs, progs, what):
     if len(outs) != len(progs):
         raise AssertionError(f"{what}: {len(outs)} frames decoded, oracle "
@@ -1006,13 +1037,14 @@ def _clone(x):
     return x
 
 
-def capture_inputs(fd, progs, trace_scan=True):
+def capture_inputs(fd, progs, trace_scan=True, keep=None):
     """Decode progs with every kernel wrapper recording its arguments;
     returns per picture {wrapper name: [(args, kwargs), ...]}, the intra
     scan as an IntraTrace under "intra_scan" (one scan a picture) unless
     trace_scan is False, when each of its calls is recorded as the others
     are.  Arguments are cloned, but not the padded planes of a traced
-    intra scan (the trace keeps them)."""
+    intra scan (the trace keeps them).  keep: a list that gets each
+    picture's decoded planes."""
     import torch
     saved = {}
     per_frame = []
@@ -1034,7 +1066,9 @@ def capture_inputs(fd, progs, trace_scan=True):
     try:
         for prog in progs:
             per_frame.append({})
-            fd.decode(prog)
+            out = fd.decode(prog)
+            if keep is not None:
+                keep.append(out)
         torch.cuda.synchronize()
     finally:
         for (m, name), fn in saved.items():
@@ -1839,7 +1873,8 @@ def many_refs_phase(smi):
     pictures' kernel calls against the plain versions, the stages of a
     routed picture, the card against the CPU, and a 10-bit
     reconstruct_stream chain.  Returns the main-path run's (counts,
-    seconds) and the kernel comparison's (max error, cases)."""
+    seconds), the kernel comparison's (max error, cases), and the
+    stream's parse-only and oracle programs."""
     import torch
     import libde265_tpu_torch as lt
     from libde265_tpu_torch import pipeline as pl
@@ -1848,9 +1883,7 @@ def many_refs_phase(smi):
                                      "stripes_1080p_12f.h265")
     log(f"stream: 1920x1088 periodic stripes, 12 frames, up to 15 "
         f"references, {len(data)} bytes, encoded in {t_enc:.1f} s")
-    dec = lt.Decoder(parse_only=True, keep_programs=True)
-    list(dec.decode_all(data))
-    pprogs = [dec.get_program(i) for i in range(dec.num_programs())]
+    pprogs = parse_only_programs(data)
     nrefs = [len(p.ref_pocs) for p in pprogs]
     routed = [i for i, n in enumerate(nrefs) if n > MAX_REFS]
     if nrefs[9:12] != [9, 10, 11] or routed != [9, 10, 11]:
@@ -1943,7 +1976,7 @@ def many_refs_phase(smi):
         raise AssertionError(f"10-bit chain: {n} pictures, peak {peak}")
     log(f"10-bit reconstruct_stream chain (64x48, {n} pictures, samples up "
         f"to {peak}): bit-exact on the card, uint16 planes")
-    return run, err, ncases
+    return run, err, ncases, pprogs, progs
 
 
 # ---------------------------------------------------------------------------
@@ -2258,6 +2291,222 @@ def multi_device_phase(smi):
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# phase 8: the per-op DeviceDecoder, and programs without the intra plan
+# ---------------------------------------------------------------------------
+
+def device_decoder_run(what, pprogs, progs, routed=0, waves=None,
+                       capture=None):
+    """One main-path run of DeviceDecoder() over parse-only programs:
+    counts set to 0, every picture decoded and synchronised (synced ms and
+    its launches, read as differences), counts read; every picture held
+    bit-exact against the oracle's, B8 and B9 once and B10 three times in
+    each (nothing else: the rest is PyTorch), `routed` pictures that the
+    JAX module sends to its pipeline or cannot decode.  waves: a list that gets each picture's number of
+    intra_wave_kernel calls and host ms in intra_wave.plan_blocks.
+    capture: a dict that gets picture 0's kernel calls (capture_inputs's
+    form).  Returns ((counts, seconds), per-picture [(ms, intra
+    picture)], the decoder)."""
+    import torch
+    from libde265_tpu_torch import tpu_decode
+    from libde265_tpu_torch.ops import intra_wave
+    dd = tpu_decode.DeviceDecoder()
+    if dd.device.type != "cuda":
+        raise AssertionError(f"DeviceDecoder() on {dd.device}")
+    kernel, plan = intra_wave.intra_wave_kernel, intra_wave.plan_blocks
+    n_calls, plan_ms = [0], [0.0]
+
+    def counted(*a, **k):
+        n_calls[0] += 1
+        return kernel(*a, **k)
+
+    def timed_plan(*a, **k):
+        t0 = time.perf_counter()
+        out = plan(*a, **k)
+        plan_ms[0] += 1000 * (time.perf_counter() - t0)
+        return out
+
+    intra_wave.intra_wave_kernel, intra_wave.plan_blocks = counted, timed_plan
+    outs, rows = [], []
+    try:
+        reset_counts()
+        t_all = time.perf_counter()
+        for i, p in enumerate(pprogs):
+            before = read_counts()
+            n_calls[0], plan_ms[0] = 0, 0.0
+            t0 = time.perf_counter()
+            if i == 0 and capture is not None:
+                (got,) = capture_inputs(dd, [p], keep=outs)
+                capture.update(got)
+            else:
+                outs.append(dd.decode(p))
+            torch.cuda.synchronize()
+            ms = 1000 * (time.perf_counter() - t0)
+            c = {n: v - before[n] for n, v in read_counts().items()}
+            if (c[B8], c[B9], c[B10]) != (1, 1, 3) or sum(c.values()) != 5:
+                raise AssertionError(f"{what} picture {i}: launches "
+                                     f"{json.dumps(c)}")
+            rows.append((ms, len(p.pus) == 0))
+            if waves is not None:
+                waves.append((n_calls[0], plan_ms[0]))
+        dt = time.perf_counter() - t_all
+        counts = read_counts()
+    finally:
+        intra_wave.intra_wave_kernel, intra_wave.plan_blocks = kernel, plan
+    assert_bit_exact(outs, progs, what)
+    if dd.pipeline_pictures != routed:
+        raise AssertionError(f"{what}: {dd.pipeline_pictures} pictures "
+                             f"with more than MAX_REFS references, CCP or "
+                             f"RDPCM, expected {routed}")
+    return (counts, dt), rows, dd
+
+
+def profile_decode(dd, prog):
+    """torch.profiler (device activity) over dd.decode(prog): wall ms,
+    device busy ms (the durations of the kernels, copies and fills, one
+    stream) and device operations, summed from the profiler's raw events
+    (key_averages takes minutes over the 400,000 operations of an I
+    picture).  dd holds prog's references (a picture it decoded before is
+    decoded again, to the same planes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dd.decode(prog)
+        torch.cuda.synchronize()
+        wall = 1000 * (time.perf_counter() - t0)
+    cuda = torch.autograd.DeviceType.CUDA
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if e.device_type() == cuda]
+    return wall, sum(ns) / 1e6, len(ns)
+
+
+def device_decoder_phase(smi, pprogs, progs, iprogs, stripe_pprogs,
+                         stripe_progs):
+    """Phase 8: a. the first GOP of the 1080p P-GOP (an I picture and 3 P
+    pictures) through DeviceDecoder() from parse-only programs
+    (per-picture ms, launches, the intra wavefront's calls and host plan,
+    picture 0's B8, B9, B10 calls against their plain versions, then one
+    P and one I picture again under torch.profiler); b. the 1080p stripe
+    stream through DeviceDecoder(), pictures 9-11 (more than MAX_REFS
+    references) counted;
+    c. the 1080p all-intra pictures without their native intra plan or
+    source through FusedDecoder() (numpy pack, records from
+    feed._plan_intra; its host ms beside the native records', picture 0's
+    records against the native ones).  An I picture takes seconds of host
+    time here (the wavefront's plan and its calls), so 8a decodes one I
+    picture, not the P-GOP's two.  Each main-path run with the counts set
+    to 0 before it and read after it.  Returns the runs [(counts,
+    seconds)] and the kernel comparison's (max error, cases)."""
+    import dataclasses
+    import torch
+    import libde265_tpu_torch as lt
+    from libde265_tpu_torch import feed
+    t_phase = t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        log(f"phase {name} took {now - t_part:.1f} s")
+        t_part = now
+
+    # a. the first GOP of the P-GOP
+    gop = next(i for i, p in enumerate(pprogs) if i and not len(p.pus))
+    waves, cap = [], {}
+    run_a, rows, dd = device_decoder_run(
+        "DeviceDecoder 1080p P-GOP", pprogs[:gop], progs[:gop], waves=waves,
+        capture=cap)
+    for kind, intra in (("I", True), ("P", False)):
+        ms = [round(r[0], 2) for r in rows if r[1] == intra]
+        w = [n for n, r in zip(waves, rows) if r[1] == intra]
+        log(f"DeviceDecoder 1080p P-GOP: {kind} pictures ms (synced) {ms}, "
+            f"median {statistics.median(ms):.2f}; per picture "
+            f"intra_wave_kernel calls {[n for n, _ in w]}, host ms in "
+            f"intra_wave.plan_blocks {[round(m, 1) for _, m in w]}; B8 / B9 "
+            f"/ B10 launches per picture 1 / 1 / 3 on {smi}")
+    log(f"DeviceDecoder 1080p P-GOP: frames 0-{gop - 1} bit-exact from "
+        f"parse-only programs, {gop / run_a[1]:.4f} fps; launches "
+        f"{json.dumps(run_a[0])}")
+    if set(cap) != {"deblock_luma", "deblock_chroma", "sao_plane_fused"}:
+        raise AssertionError(f"DeviceDecoder picture 0: kernels "
+                             f"{sorted(cap)}")
+    err, ncases = compare_kernels([("DeviceDecoder picture 0", cap)])
+    log(f"DeviceDecoder picture 0: B8, B9 and B10 equal to their plain "
+        f"versions on its calls (tolerance 0): "
+        f"{json.dumps({n: ncases[n] for n in (B8, B9, B10)})}")
+    for kind, idx in (("P", 1), ("I", 0)):
+        wall, busy, n_ops = profile_decode(dd, pprogs[idx])
+        log(f"profiled DeviceDecoder {kind} picture {idx}: wall "
+            f"{wall:.2f} ms, device busy {busy:.2f} ms, idle share "
+            + (f"{1 - busy / wall:.3f}" if busy > 0 else "not measured")
+            + f", {n_ops} device operations on {smi}")
+    del dd, cap
+    part("8a")
+
+    # b. more than MAX_REFS references
+    routed = [i for i, p in enumerate(stripe_pprogs)
+              if len(p.ref_pocs) > feed.MAX_REFS]
+    run_b, rows, _ = device_decoder_run(
+        "DeviceDecoder 1080p many references", stripe_pprogs, stripe_progs,
+        routed=3)
+    log(f"DeviceDecoder 1080p many references: {len(stripe_pprogs)} frames "
+        f"bit-exact, {len(routed)} with more than MAX_REFS references "
+        f"(pictures {routed}); ms (synced) {[round(r[0], 2) for r in rows]} on {smi}")
+    part("8b")
+
+    # c. the all-intra pictures without the native intra plan or source
+    bare = [dataclasses.replace(p, ip=None, src=None) for p in iprogs]
+    plan, spent = feed._plan_intra, []
+
+    def timed_plan(*a):
+        t0 = time.perf_counter()
+        out = plan(*a)
+        spent.append((1000 * (time.perf_counter() - t0), out))
+        return out
+
+    fd = lt.FusedDecoder()
+    feed._plan_intra = timed_plan
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        outs = [fd.decode(p) for p in bare]
+        torch.cuda.synchronize()
+        run_c = (read_counts(), time.perf_counter() - t0)
+    finally:
+        feed._plan_intra = plan
+    assert_bit_exact(outs, iprogs, "all-intra without the intra plan")
+    pk = fd.packer
+    if run_c[0][SCAN] != len(bare) or len(spent) != len(bare) or \
+            (pk.numpy_packs, pk.native_packs) != (len(bare), 0):
+        raise AssertionError(f"all-intra without the intra plan: "
+                             f"{run_c[0][SCAN]} scans, {len(spent)} plans, "
+                             f"{pk.numpy_packs} numpy and "
+                             f"{pk.native_packs} native packs")
+    native_ms = []
+    for p in iprogs:
+        t0 = time.perf_counter()
+        feed._intra_records_native(p)
+        native_ms.append(1000 * (time.perf_counter() - t0))
+    got, want = spent[0][1], feed._intra_records_native(iprogs[0])
+    if not (np.array_equal(got[0], want[0]) and got[1] == want[1] and
+            np.array_equal(got[2], want[2])):
+        raise AssertionError("picture 0: _plan_intra's records differ from "
+                             "the native plan's")
+    log(f"1080p all-intra without the native intra plan (ip=None, "
+        f"src=None), FusedDecoder(): {len(bare)} frames bit-exact, "
+        f"{run_c[0][SCAN]} scan launches, {pk.numpy_packs} numpy packs; "
+        f"picture 0's records equal the native plan's word for word "
+        f"({want[0].shape[0]} blocks, {want[1]} steps); _plan_intra host ms "
+        f"per picture {[round(m, 1) for m, _ in spent]} against the native "
+        f"records' {[round(m, 2) for m in native_ms]}; "
+        f"{len(bare) / run_c[1]:.4f} fps on {smi}")
+    part("8c")
+    log(f"phase 8 (DeviceDecoder, no intra plan) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return [run_a, run_b, run_c], err, ncases
+
 
 def main():
     t_start = time.perf_counter()
@@ -2590,7 +2839,7 @@ def main():
         log(f"RDPCM injected, {what}: the card equals the CPU decode")
 
     # ---- phase 6: pictures with more than 8 references ----
-    run6, err6, ncases6 = many_refs_phase(smi)
+    run6, err6, ncases6, stripe_pprogs, stripe_progs = many_refs_phase(smi)
     runs.append(run6)
     counts = {n: sum(r[0][n] for r in runs) for n in NAMES}
     for n in NAMES:
@@ -2603,6 +2852,18 @@ def main():
     runs += multi_device_phase(smi)
     counts = {n: sum(r[0][n] for r in runs) for n in NAMES}
     log(f"launches in the main-path runs (phases 3, 6 and 7): "
+        f"{json.dumps(counts)}")
+
+    # ---- phase 8: DeviceDecoder, programs without the intra plan ----
+    runs8, err8, ncases8 = device_decoder_phase(
+        smi, parse_only_programs(data), progs, iprogs, stripe_pprogs,
+        stripe_progs)
+    runs += runs8
+    counts = {n: sum(r[0][n] for r in runs) for n in NAMES}
+    for n in NAMES:
+        err[n] = max(err[n], err8[n])
+        ncases[n] += ncases8[n]
+    log(f"launches in the main-path runs (phases 3, 6, 7 and 8): "
         f"{json.dumps(counts)}")
 
     bad = sorted(m for m in sys.modules

@@ -2,8 +2,11 @@
 
 A copy of the numpy packer of ``libde265_tpu/fused_decode.py``
 (``_pack_numpy``, ``_grow`` and ``plan_stream``, with ``_bin_tus``,
-``_intra_records_native`` and ``_pack_pcm``; the segment planning lives in
-``ops/mc_seg.py``), kept here so that the port never imports JAX.  Both of
+``_intra_records_native``, ``_plan_intra`` and ``_pack_pcm``; the segment
+planning lives in ``ops/mc_seg.py``), kept here so that the port never
+imports JAX.  A program without the native intra plan (``prog.ip`` None)
+has its intra records scheduled by ``_plan_intra``, as in the JAX
+package.  Both of
 its formulations are here: with ``pallas_mc`` the production feed (the MC
 segment index feed ``sg{l}n``/``sg{l}i``, the residual band feed
 ``rs{lg}{ch}.n``/``.sw`` in place of ``bin{lg}.sc_*``, reference POCs by
@@ -12,7 +15,9 @@ else the ``use_pallas_mc=False`` feed.  For the same sequence of pictures
 it returns the same ``(layout, buf)`` word for word as the JAX packer,
 capacity watermarks included; ``tests/test_torch_feed.py`` holds the two
 against each other.  With cross-component prediction latched, both
-formulations ship each bin's CCP partner rows and scales.
+formulations ship each bin's CCP partner rows and scales.  Where the
+chroma bit depth differs from the luma depth (no JAX feed has such a
+stream), both packers also ship each TU row's channel (``bin{lg}.cidx``).
 
 ``FeedPacker.pack_native`` builds the production feed in C++
 (``native/src/feedpack.cc``, through ``tde265_pack_caps`` and
@@ -27,9 +32,12 @@ import ctypes as ct
 
 import numpy as np
 
-from .decoder import OP_RESIDUAL, TU_INTRA, TU_RDPCM, FrameProgramData
+from .decoder import (OP_INTRA, OP_RESIDUAL, TU_INTRA, TU_RDPCM,
+                      FrameProgramData)
 from .ops import mc_seg
 from .ops.deblock import NOREF
+from .ops.intra import IntraContext
+from .ops.intra_wave import border_plan
 from .ops.mc_seg import pus_to_wire  # noqa: F401  (re-exported)
 
 MAX_REFS = 8
@@ -244,13 +252,141 @@ def _intra_records_native(prog: FrameProgramData):
     return irec, n_steps, nsteps_pc
 
 
-def _intra_records(prog: FrameProgramData):
+def _plan_intra(prog: FrameProgramData, tu_bin_lg, tu_bin_row):
+    """List-schedule the intra blocks into capacity-limited super-waves.
+
+    Python fallback for streams decoded without the native plan (prog.ip is
+    None).  Emits the same flat irec array as _intra_records_native.
+    """
+    if len(prog.intras) == 0:
+        return np.zeros((0, IREC_COLS), np.int32), 0, np.zeros(3, np.int32)
+    ctx = IntraContext(prog.width, prog.height, prog.ctb_size, prog.cu_info,
+                       slice_addr=prog.slice_addr, tile_id=prog.tile_id)
+    chroma444 = prog.chroma_width == prog.width and prog.chroma_width > 0
+
+    # residual TU for each intra op (same x/y/cidx, next in decode order)
+    resid_of = {}
+    pending = {}
+    order = []
+    for op in prog.ops:
+        if op["kind"] == OP_INTRA:
+            rec = prog.intras[op["idx"]]
+            key = (int(rec["x"]), int(rec["y"]), int(rec["cidx"]))
+            pending[key] = int(op["idx"])
+            order.append(int(op["idx"]))
+        elif op["kind"] == OP_RESIDUAL:
+            t = int(op["idx"])
+            if not (prog.tus["flags"][t] & TU_INTRA):
+                continue
+            tu = prog.tus[t]
+            key = (int(tu["x"]), int(tu["y"]), int(tu["cidx"]))
+            i = pending.get(key)
+            if i is not None:
+                resid_of[i] = t
+
+    wmaps = {}
+    counts = {}   # (cidx, lg) -> list of per-step counts
+    rows = []     # irec rows
+    n_steps = 0
+    nsteps_pc = np.zeros(3, np.int32)
+    for i in order:
+        rec = prog.intras[i]
+        c = int(rec["cidx"])
+        if c == 0:
+            sub_x = sub_y = 1
+            H, Wd = prog.height, prog.width
+        else:
+            sub_x = prog.width // prog.chroma_width
+            sub_y = prog.height // prog.chroma_height
+            H, Wd = prog.chroma_height, prog.chroma_width
+        if c not in wmaps:
+            wmaps[c] = np.zeros(((H + 3) // 4, (Wd + 3) // 4), np.int32)
+        wmap = wmaps[c]
+        x0, y0 = int(rec["x"]), int(rec["y"])
+        lg = int(rec["log2_size"])
+        nT = 1 << lg
+        pos, subst, unavail = border_plan(ctx, x0, y0, nT, sub_x, sub_y, H, Wd)
+        if unavail:
+            dep = 0
+        else:
+            have = subst == np.arange(len(subst))
+            cells = pos[have] >> 2
+            dep = int(wmap[cells[:, 0], cells[:, 1]].max(initial=0))
+        key = (c, lg)
+        cap = WAVE_CAP[lg]
+        cnt = counts.setdefault(key, [])
+        step = dep  # 0-based step index; block must run at step >= dep
+        while True:
+            while len(cnt) <= step:
+                cnt.append(0)
+            if cnt[step] < cap:
+                break
+            step += 1
+        slot = cnt[step]
+        cnt[step] += 1
+        wmap[y0 >> 2:(y0 + nT + 3) >> 2, x0 >> 2:(x0 + nT + 3) >> 2] = step + 1
+        n_steps = max(n_steps, step + 1)
+        nsteps_pc[c] = max(nsteps_pc[c], step + 1)
+
+        mode = int(rec["mode"])
+        filt = False
+        if (c == 0 or chroma444) and not ctx.smoothing_disabled:
+            if mode != 1 and nT != 4:
+                mind = min(abs(mode - 26), abs(mode - 10))
+                thresh = 7 if nT == 8 else (1 if nT == 16 else 0)
+                filt = True if mode == 0 else (mind > thresh)
+        strong = filt and ctx.strong_smoothing and c == 0 and nT == 32
+        edge = 0
+        if c == 0 and nT < 32:
+            edge = {1: 1, 26: 2, 10: 3}.get(mode, 0)
+        t = resid_of.get(i)
+        rrow = -1
+        if t is not None and tu_bin_lg[t] == lg:
+            rrow = int(tu_bin_row[t])
+        elif t is not None:
+            # residual TU size differs from the intra block (cannot happen
+            # in HEVC: intra prediction operates per transform block)
+            raise ValueError("intra/TU size mismatch")
+        nb = 4 * nT + 1
+        av = (subst == np.arange(nb)) & (not unavail)
+        row = np.zeros(IREC_COLS, np.int32)
+        row[0:10] = (mode, edge, y0, x0,
+                     (1 * unavail) | (2 * filt) | (4 * strong) | 8,  # 8=valid
+                     rrow, step, slot, c, lg)
+        row[10:10 + AVAIL_WORDS] = _avail_words(av[None, :])[0]
+        rows.append(row)
+
+    return np.stack(rows).astype(np.int32), n_steps, nsteps_pc
+
+
+def _intra_records(prog: FrameProgramData, tu_bin_lg=None, tu_bin_row=None):
+    """(irec, steps, steps per plane) of the picture: from the native plan,
+    or scheduled by _plan_intra when the program has none (prog.ip is
+    None); tu_bin_lg / tu_bin_row as _bin_tus gives them (computed here
+    when not given)."""
     if len(prog.intras) == 0:
         return np.zeros((0, IREC_COLS), np.int32), 0, np.zeros(3, np.int32)
     if prog.ip is None:
-        raise ValueError(
-            "picture has intra blocks but no native intra plan (prog.ip)")
+        if tu_bin_lg is None:
+            _, tu_bin_lg, tu_bin_row = _bin_tus(prog)
+        return _plan_intra(prog, tu_bin_lg, tu_bin_row)
     return _intra_records_native(prog)
+
+
+def two_depths(prog: FrameProgramData) -> bool:
+    """Whether the chroma bit depth differs from the luma depth: the feed
+    then carries each TU's channel in bin{lg}.cidx, so that the residual
+    section takes every TU at its own channel's depth (ROADMAP C8)."""
+    return bool(prog.chroma_width) and prog.bit_depth[1] != prog.bit_depth[0]
+
+
+def _tu_channels(prog: FrameProgramData, lg: int, cap: int):
+    """The channel of each TU row of bin lg, zero-padded to cap rows."""
+    out = np.zeros(cap, np.int32)
+    if len(prog.tus):
+        c = prog.tus["cidx"][prog.tus["log2_size"] == lg]
+        out[:len(c)] = c
+    return out
 
 
 def _pack_pcm(prog: FrameProgramData, sub_x, sub_y):
@@ -416,7 +552,7 @@ class FeedPacker:
                 if caps is not None:
                     self.plan_from_caps(prog, caps)
                     continue
-            bins, _, _ = _bin_tus(prog)
+            bins, tl, tr = _bin_tus(prog)
             sub_y0 = prog.height // prog.chroma_height \
                 if prog.chroma_height else 1
             for lg, b in bins.items():
@@ -433,7 +569,10 @@ class FeedPacker:
             self._note_l1(prog)
             self.has_inter = self.has_inter or len(prog.pus) > 0
             self.multi = self.multi or _multi_boundary(prog)
-            _, n_steps, _ = _intra_records(prog)
+            if prog.ip is not None:
+                n_steps = int(prog.ip["step"].max(initial=-1)) + 1
+            else:
+                _, n_steps, _ = _intra_records(prog, tl, tr)
             if len(prog.intras):
                 self._note_intra_lgs(prog)
             self.grow("steps", n_steps)
@@ -496,7 +635,8 @@ class FeedPacker:
                 seg_host[f"sg{l}n"] = counts.astype(np.int32)
 
         # --- TU bins ---
-        bins, _, _ = _bin_tus(prog)
+        bins, tl, tr = _bin_tus(prog)
+        chans = two_depths(prog)
         host = {}
         lgs = []
         z0 = np.zeros(0, np.int32)
@@ -518,6 +658,8 @@ class FeedPacker:
             coff = b["coff"] if b else np.zeros(1, np.int32)
             host[f"bin{lg}.coff"] = _pad_rows(coff, tcap + 1,
                                               fill=int(coff[-1]))
+            if chans:
+                host[f"bin{lg}.cidx"] = _tu_channels(prog, lg, tcap)
             fcap = self.grow(f"cf{lg}", len(b["cfx"]) if b else 0)
             if fcap:
                 host[f"bin{lg}.cfx"] = _pad_rows(
@@ -543,7 +685,7 @@ class FeedPacker:
                     host[f"rs{lg}{ch}.sw"] = swp
 
         # --- intra super-waves (flat records; scan layout built on device) ---
-        irec, n_steps, nsteps_pc = _intra_records(prog)
+        irec, n_steps, nsteps_pc = _intra_records(prog, tl, tr)
         self.caps["steps"] = max(self.caps["steps"],
                                  _pow2(n_steps) if n_steps else 0)
         if len(prog.intras):
@@ -566,6 +708,8 @@ class FeedPacker:
                 host[f"bin{lg}.mid"] = _pad_rows(z0, tcap)
                 host[f"bin{lg}.cv"] = _pad_rows(z0, ccap)
                 host[f"bin{lg}.coff"] = np.zeros(tcap + 1, np.int32)
+                if chans:
+                    host[f"bin{lg}.cidx"] = _tu_channels(prog, lg, tcap)
                 if self.has_ccp:
                     host[f"bin{lg}.ccp_row"] = _pad_rows(z0, tcap, fill=-1)
                     host[f"bin{lg}.ccp_scale"] = _pad_rows(z0, tcap)
@@ -758,12 +902,13 @@ class FeedPacker:
                 self.grow(f"co{lg}", 1)
         lgs = [lg for lg in (2, 3, 4, 5) if self.caps[f"tu{lg}"] > 0]
 
+        chans = two_depths(prog)
         sig = (tuple(sorted(self.caps.items())), lists,
                tuple(prog.pu_idx.shape), (prog.ctb_h, prog.ctb_w), n_bands,
-               n_slices, tuple(sorted(self.intra_lgs)), self.has_ccp)
+               n_slices, tuple(sorted(self.intra_lgs)), self.has_ccp, chans)
         if self._layout_cache is None or self._layout_cache[0] != sig:
             self._layout_cache = (sig, self._native_layout(
-                prog, lgs, lists, n_bands, n_slices))
+                prog, lgs, lists, n_bands, n_slices, chans))
         layout, entries, total = self._layout_cache[1]
         aux = np.zeros(25, np.int32)    # ref index -> ring slot, twice
         for k, v in slot_map.items():
@@ -789,14 +934,18 @@ class FeedPacker:
         buf[fields["mc_on"][0]] = 1 if len(prog.pus) else 0
         off = fields["slot_row"][0]
         buf[off:off + 3] = slot_row
+        for lg in lgs if chans else ():
+            off, (cap,) = fields[f"bin{lg}.cidx"]
+            buf[off:off + cap] = _tu_channels(prog, lg, cap)
         self.native_packs += 1
         return layout, buf, lgs, n_slices
 
-    def _native_layout(self, prog, lgs, lists, n_bands, n_slices):
+    def _native_layout(self, prog, lgs, lists, n_bands, n_slices, chans):
         """(layout, entries [n, 8] int32, total words) of the production
         feed under the current watermarks: every field of pack's layout,
         an entry {key, p0, p1, offset, shape[:4]} for each field that the
-        native packer fills."""
+        native packer fills (chans: the bin{lg}.cidx fields, filled in
+        pack_native)."""
         shapes, ids = {}, {}
 
         def ent(key, kid, p0, p1, shape):
@@ -808,6 +957,8 @@ class FeedPacker:
             ent(f"bin{lg}.tm", "tm", lg, 0, ((tcap + 1) // 2,))
             ent(f"bin{lg}.cv", "cv", lg, 0, (ccap,))
             ent(f"bin{lg}.coff", "coff", lg, 0, (tcap + 1,))
+            if chans:
+                shapes[f"bin{lg}.cidx"] = (tcap,)
             fcap = self.caps[f"cf{lg}"]
             if fcap:
                 ent(f"bin{lg}.cfx", "cfx", lg, 0, (fcap,))

@@ -400,13 +400,15 @@ def _residual_section(feed, sf_tables, st):
         tskip = (flags & TU_TRANSFORM_SKIP) != 0
         use_dst = (flags & TU_USE_DST) != 0
         bypass = (flags & TU_TQ_BYPASS) != 0
+        kw = {}
         if st["scaling"]:
-            sf = sf_tables[lg - 2][bf["mid"].long()]
-            res = tx.residual_batch(levels, tx.qp_to_fact(bf["qp"]), tskip,
-                                    use_dst, lg, bd, sf=sf, qp=bf["qp"])
-        else:
-            res = tx.residual_batch(levels, tx.qp_to_fact(bf["qp"]), tskip,
-                                    use_dst, lg, bd)
+            kw = dict(sf=sf_tables[lg - 2][bf["mid"].long()], qp=bf["qp"])
+        # each TU at its channel's depth: the feed ships the channels
+        # (bin{lg}.cidx) only where the two depths differ (ROADMAP C8)
+        res = tx.residual_batch_by_channel(
+            levels, tx.qp_to_fact(bf["qp"]), tskip, use_dst, lg, bd,
+            st["bdc"] if "cidx" in bf else bd,
+            bf["cidx"] != 0 if "cidx" in bf else None, **kw)
         base = torch.where(bypass[:, None, None], levels, res)
         if st.get("has_rdpcm"):
             base = _rdpcm(base, flags, tskip, bypass)

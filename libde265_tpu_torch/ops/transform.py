@@ -5,7 +5,10 @@ dense ``[N, s, s]`` int32 batches.  The two 1-D transform stages are
 matrix products taken in float64: the integer sums reach about
 32 * 90 * 32768 (9.4e7), beyond float32's exact range (2**24) but far
 inside float64's (2**53), so every product and sum is exact on both the
-CPU and the GPU.  PyTorch has no general int32 matmul on CUDA.
+CPU and the GPU.  PyTorch has no general int32 matmul on CUDA.  A bin
+mixes the TUs of every channel, so ``residual_batch_by_channel`` takes
+each TU at its own channel's bit depth where luma and chroma depths
+differ.
 """
 from __future__ import annotations
 
@@ -147,6 +150,21 @@ def residual_batch(levels, fact, tskip, use_dst, log2_size: int,
     rnd = 1 << (bd_shift2 - 1)
     r_skip = ((coeff << ts_shift) + rnd) >> bd_shift2
     return torch.where(tskip[:, None, None], r_skip, r_tx)
+
+
+def residual_batch_by_channel(levels, fact, tskip, use_dst, log2_size: int,
+                              bd: int, bdc: int, chroma, sf=None, qp=None):
+    """residual_batch with every TU at its own channel's bit depth: luma
+    rows at bd, the rows where chroma (bool [N] tensor; None when the two
+    depths agree) is set at bdc.  One pass when the two depths agree, else
+    one per depth."""
+    res = residual_batch(levels, fact, tskip, use_dst, log2_size, bd, sf=sf,
+                         qp=qp)
+    if bdc == bd:
+        return res
+    res_c = residual_batch(levels, fact, tskip, use_dst, log2_size, bdc,
+                           sf=sf, qp=qp)
+    return torch.where(chroma[:, None, None], res_c, res)
 
 
 def qp_to_fact(qp):

@@ -30,9 +30,10 @@ references here, with the references from its own DPB
 whole stream as an independent chain, its own pictures feeding back as
 references at the stream's bit depth.
 
-Two faults of the JAX module are not carried over (ROADMAP C): the chroma
-deblocking counts (Wc + 7) // 8 and (Hc + 7) // 8 edges (C1), and
-``reconstruct_stream`` keeps samples above 8 bits (C7).  All chroma
+Three faults of the JAX module are not carried over (ROADMAP C): the
+chroma deblocking counts (Wc + 7) // 8 and (Hc + 7) // 8 edges (C1),
+``reconstruct_stream`` keeps samples above 8 bits (C7), and chroma TUs and
+chroma MC run at the chroma bit depth (C8).  All chroma
 geometries (4:0:0/4:2:0/4:2:2/4:4:4) are handled as in the JAX module:
 subsampling per axis from the program's plane dimensions.
 """
@@ -113,7 +114,9 @@ def _compute_residuals(prog: FrameProgramData, device):
     # inverse-transform path (mirrors native/src/transform.cc)
     rdpcm_ts = ((flags & TU_RDPCM) != 0) & ((flags & TU_TRANSFORM_SKIP) != 0)
     plain = ((flags & TU_TQ_BYPASS) == 0) & ~rdpcm_ts
-    bd = prog.bit_depth[0]  # per-TU channel depth equal for 8-bit
+    # each TU at its channel's depth (ROADMAP C8)
+    bd = prog.bit_depth[0]
+    bdc = prog.bit_depth[1] if prog.chroma_width else bd
     for lg in (2, 3, 4, 5):
         sel = np.nonzero((tus["log2_size"] == lg) & plain)[0]
         if len(sel) == 0:
@@ -124,19 +127,18 @@ def _compute_residuals(prog: FrameProgramData, device):
         fact = tx.qp_to_fact(qp)
         tskip = _t((flags[sel] & TU_TRANSFORM_SKIP) != 0, device, torch.bool)
         use_dst = _t((flags[sel] & TU_USE_DST) != 0, device, torch.bool)
+        cidx = tus["cidx"][sel].astype(np.int32)
+        kw = {}
         if prog.scaling_factors is not None:
             # per-TU matrix id (spec 7.4.5 / 8.6.3): cidx (+3 for inter,
             # except 32x32 which has only intra/inter luma matrices)
-            cidx = tus["cidx"][sel].astype(np.int32)
             intra = (flags[sel] & TU_INTRA) != 0
             mid = np.where(intra, 0, 1) if lg == 5 else \
                 cidx + np.where(intra, 0, 3)
-            sf = _t(prog.scaling_factors[lg][mid], device)
-            res = tx.residual_batch(levels, fact, tskip, use_dst, lg, bd,
-                                    sf=sf, qp=qp)
-        else:
-            res = tx.residual_batch(levels, fact, tskip, use_dst, lg, bd)
-        out[lg] = (sel, res)
+            kw = dict(sf=_t(prog.scaling_factors[lg][mid], device), qp=qp)
+        chroma = _t(cidx != 0, device, torch.bool) if bdc != bd else None
+        out[lg] = (sel, tx.residual_batch_by_channel(
+            levels, fact, tskip, use_dst, lg, bd, bdc, chroma, **kw))
 
     extra = {}
     for t in np.nonzero(~plain)[0]:
@@ -310,7 +312,7 @@ def _motion_compensate(prog: FrameProgramData, planes, ref_planes=None):
                 winc = mc_ops.gather_windows(stacks[1 + c], cx, cy, w // sx,
                                              h // sy, 4, 1, slot)
                 preds_c[l][c] = mc_ops.mc_chroma_batch(
-                    winc, fcx, fcy, w // sx, h // sy, bd)
+                    winc, fcx, fcy, w // sx, h // sy, prog.bit_depth[1])
 
         # merge params per PU
         bi = dt(pf == 3).bool()

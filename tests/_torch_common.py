@@ -196,6 +196,144 @@ def stripe_stream(w=256, h=64, n=12, qp=30, ctb=32, block=8, seed=7):
         return stream + enc.finish()
 
 
+def _nal_units(data):
+    """[(start, end)] of the NAL unit payloads of an Annex B byte stream
+    (after each 00 00 01 start code)."""
+    starts, i = [], data.find(b"\x00\x00\x01")
+    while i >= 0:
+        starts.append(i + 3)
+        i = data.find(b"\x00\x00\x01", i + 3)
+    ends = [s - 3 for s in starts[1:]] + [len(data)]
+    # a 4-byte start code leaves a zero byte at the end of the previous unit
+    return [(s, e - 1 if e < len(data) and data[e - 1] == 0 else e)
+            for s, e in zip(starts, ends)]
+
+
+def _rbsp_bits(ebsp):
+    """The bits of an RBSP from its escaped bytes (emulation prevention
+    removed), as a list of 0/1."""
+    out, zeros = bytearray(), 0
+    for b in ebsp:
+        if zeros >= 2 and b == 3:
+            zeros = 0
+            continue
+        out.append(b)
+        zeros = zeros + 1 if b == 0 else 0
+    return [(b >> (7 - k)) & 1 for b in out for k in range(8)]
+
+
+def _escape(bits):
+    """Bytes of an RBSP with its stop bit and alignment added, escaped with
+    emulation prevention bytes."""
+    bits = bits + [1] + [0] * (-(len(bits) + 1) % 8)
+    raw = bytes(int("".join(map(str, bits[i:i + 8])), 2)
+                for i in range(0, len(bits), 8))
+    out, zeros = bytearray(), 0
+    for b in raw:
+        if zeros >= 2 and b <= 3:
+            out.append(3)
+            zeros = 0
+        out.append(b)
+        zeros = zeros + 1 if b == 0 else 0
+    return bytes(out)
+
+
+def _ue(v):
+    """Exp-Golomb bits of v."""
+    code = bin(v + 1)[2:]
+    return [0] * (len(code) - 1) + [int(c) for c in code]
+
+
+def with_chroma_depth(data, bit_depth_chroma=10):
+    """The stream with its SPS's bit_depth_chroma_minus8 rewritten (the SPS
+    RBSP re-emitted with emulation prevention), every other bit kept.
+
+    For a stream without PCM, extended precision, high-precision offsets
+    or a chroma SAO offset of magnitude 7 (sao_offset_abs's largest value
+    at 8 bits, which ends its binarization there), no slice syntax depends
+    on the chroma depth, so the native decoder parses the same syntax at
+    the new depth and reconstructs the chroma planes at it: its planes are
+    the oracle of a stream with unequal depths (ROADMAP C8)."""
+    out, pos = bytearray(), 0
+    for s, e in _nal_units(data):
+        if (data[s] >> 1) & 63 != 33:       # not an SPS
+            continue
+        bits = _rbsp_bits(data[s + 2:e])
+        p = [0]
+
+        def u(n):
+            v = 0
+            for _ in range(n):
+                v = (v << 1) | bits[p[0]]
+                p[0] += 1
+            return v
+
+        def ue():
+            z = 0
+            while bits[p[0] + z] == 0:
+                z += 1
+            p[0] += z
+            return u(z + 1) - 1
+
+        u(4)                                # sps_video_parameter_set_id
+        if u(3) != 0:                       # sps_max_sub_layers_minus1
+            raise ValueError("only one sub-layer is handled")
+        u(1)
+        u(96)                               # profile_tier_level
+        ue()                                # sps_seq_parameter_set_id
+        if ue() == 3:                       # chroma_format_idc
+            u(1)
+        ue(), ue()                          # picture width, height
+        if u(1):                            # conformance_window_flag
+            for _ in range(4):
+                ue()
+        ue()                                # bit_depth_luma_minus8
+        at = p[0]
+        ue()                                # bit_depth_chroma_minus8
+        rest = bits[p[0]:]
+        rest = rest[:len(rest) - rest[::-1].index(1) - 1]   # stop bit off
+        rbsp = bits[:at] + _ue(bit_depth_chroma - 8) + rest
+        out += data[pos:s + 2] + _escape(rbsp)
+        pos = e
+    return bytes(out + data[pos:])
+
+
+@functools.lru_cache(maxsize=None)
+def chroma_depth_gop():
+    """A 64x64 B-GOP with SAO and TMVP (5 pictures, bi-predicted PUs in
+    three) whose SPS says 8-bit luma and 10-bit chroma
+    (with_chroma_depth); no chroma SAO offset of its 8-bit parse has
+    magnitude 7."""
+    return with_chroma_depth(gop(w=64, h=64, n=5, **CHROMA_DEPTH_GOP))
+
+
+CHROMA_DEPTH_GOP = {"intra-period": 8, "sao": True, "b-slices": True,
+                    "tmvp": True}
+
+
+@functools.lru_cache(maxsize=None)
+def tskip_stream(w=64, h=64, n=3, seed=3):
+    """A stream with transform-skip TUs (bytes, cached): flat pictures with
+    isolated bright samples (5% of them, seeded), encoded with transform
+    skip on, 8x8 CUs (cb-split-algo min-8), so that 4:2:0 chroma TUs
+    are 4x4, and intra period 8 (P pictures after the first).  The
+    encoder takes transform skip for a 4x4 TU whose levels sum to less
+    than the DCT's (native/src/encoder.cc), as an impulse's do."""
+    rng = np.random.default_rng(seed)
+    with Encoder(qp=30, ctb_size=32) as enc:
+        enc.set_parameter("transform-skip", True)
+        enc.set_parameter("cb-split-algo", "min-8")
+        enc.set_parameter("intra-period", 8)
+        stream = b""
+        for _ in range(n):
+            y = np.full((h, w), 100, np.uint8)
+            y[rng.random((h, w)) < 0.05] = 220
+            cb = np.full((h // 2, w // 2), 128, np.uint8)
+            cb[rng.random((h // 2, w // 2)) < 0.05] = 200
+            stream += enc.encode(y, cb, cb.copy())
+        return stream + enc.finish()
+
+
 def gop_bytes(name):
     g = dict(GOPS[name])
     params = dict(g.pop("params"))

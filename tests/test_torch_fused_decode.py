@@ -30,6 +30,7 @@ from libde265_tpu.decoder import TU_RDPCM, TU_TQ_BYPASS, TU_TRANSFORM_SKIP
 
 from libde265_tpu_torch import FusedDecoder, PipelinedDecoder
 from libde265_tpu_torch import fused_decode as tfd
+from libde265_tpu_torch.tpu_decode import DeviceDecoder
 
 from libde265_tpu_torch.feed import FeedPacker, MAX_REFS
 
@@ -125,6 +126,8 @@ def test_entry_points_default_to_cuda():
     assert FusedDecoder().device.type == "cuda"
     assert PipelinedDecoder().fd.device.type == "cuda"
     assert FusedDecoder(device="cpu").device.type == "cpu"
+    assert DeviceDecoder().device.type == "cuda"
+    assert DeviceDecoder(device="cpu").device.type == "cpu"
 
 
 def test_fused_decoder_watermark_growth(native_build):
@@ -163,7 +166,9 @@ def test_seek_decode_from_reference_planes(native_build):
 
 
 def test_unported_paths_raise(native_build):
-    """A picture with intra blocks and no intra plan still raises.  More
+    """A picture with intra blocks and no native intra plan no longer
+    raises: feed._plan_intra schedules its records, as in the JAX package,
+    and it decodes to the oracle's planes.  More
     than MAX_REFS references no longer raise NotImplementedError: such a
     picture goes to pipeline.reconstruct (tests/test_torch_many_refs.py),
     and one whose references are neither in the decoder's DPB nor
@@ -177,8 +182,10 @@ def test_unported_paths_raise(native_build):
     fd = FusedDecoder(device="cpu")
     with pytest.raises(RuntimeError, match="reference POC 1 "):
         fd.decode(dataclasses.replace(p, ref_pocs=list(range(9))))
-    with pytest.raises(ValueError, match="intra plan"):
-        fd.decode(dataclasses.replace(progs[0], ip=None))
+    got = fd.decode(dataclasses.replace(progs[0], ip=None))
+    assert fd.packer.numpy_packs == 1
+    for c in range(3):
+        np.testing.assert_array_equal(got[c].numpy(), progs[0].planes[c])
     k = np.nonzero((p.tus["cidx"] == 0) & (
         p.tus["flags"] & (TU_TRANSFORM_SKIP | TU_TQ_BYPASS) == 0))[0][0]
     for field, value, latch in (("cross_comp_scale", 1, "has_ccp"),
