@@ -792,57 +792,6 @@ def per_picture(progs):
     return rows, ring
 
 
-def section_ms(progs, idx):
-    """Synced ms of one picture's host feed pack, feed upload (with B1),
-    motion compensation, intra scan, deblocking and whole decode (the
-    pictures before it decoded first, untimed)."""
-    import torch
-    import libde265_tpu_torch as lt
-    fdm, feed = lt.fused_decode, lt.feed
-    spent = {"pack": 0.0, "intra scan": 0.0}
-
-    def timed(key, fn):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            spent[key] += 1000 * (time.perf_counter() - t0)
-            return out
-        return run
-
-    fd = lt.FusedDecoder()
-    fd.plan_stream(progs)
-    for p in progs[:idx]:
-        fd.decode(p)
-    spent["upload"] = spent["mc"] = spent["deblock"] = 0.0
-    scan, pack = fdm._intra_scan_all, feed.FeedPacker.pack
-    pack_native = feed.FeedPacker.pack_native
-    upload, mc = fdm.FusedDecoder._sparse_upload, fdm._mc_section
-    deblock = fdm._deblock_section
-    fdm._intra_scan_all = timed("intra scan", scan)
-    # "pack" is whichever packer the decoder calls
-    feed.FeedPacker.pack = timed("pack", pack)
-    feed.FeedPacker.pack_native = timed("pack", pack_native)
-    fdm.FusedDecoder._sparse_upload = timed("upload", upload)
-    fdm._mc_section = timed("mc", mc)
-    fdm._deblock_section = timed("deblock", deblock)
-    native = fd.packer.native_packs
-    try:
-        t0 = time.perf_counter()
-        fd.decode(progs[idx])
-        torch.cuda.synchronize()
-        spent["picture"] = 1000 * (time.perf_counter() - t0)
-    finally:
-        fdm._intra_scan_all, feed.FeedPacker.pack = scan, pack
-        feed.FeedPacker.pack_native = pack_native
-        fdm.FusedDecoder._sparse_upload, fdm._mc_section = upload, mc
-        fdm._deblock_section = deblock
-    if fd.packer.native_packs != native + 1:
-        raise AssertionError(f"picture {idx} was not packed natively")
-    return spent
-
-
 def section_alone(progs, idx, name, run=None, reps=20, owner=None):
     """The picture program's section fused_decode.<name> of one picture
     alone (the pictures before it decoded first): its arguments captured
@@ -2611,12 +2560,6 @@ def main():
                 f"bytes (last_wire_bytes) {[r[3] for r in sel]} on {smi}")
         log(f"{what}: DPB ring {ring} bytes (3 planes x 17 padded slots)")
 
-    for what, pp, idx in (("P-GOP I", progs, first_i),
-                          ("P-GOP P", progs, first_p),
-                          ("all-intra", iprogs, 1)):
-        spent = {k: round(v, 2) for k, v in section_ms(pp, idx).items()}
-        log(f"sections of {what} picture {idx} (synced ms): "
-            f"{json.dumps(spent)} on {smi}")
     for what, pp, idx in (("P-GOP I", progs, first_i),
                           ("P-GOP P", progs, first_p)):
         for sec, fn in (("deblocking", deblock_section),

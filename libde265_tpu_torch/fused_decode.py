@@ -49,6 +49,12 @@ decoder's own DPB (the ring slots cropped to the picture, or the dict of
 decoded planes); only a POC the decoder does not hold (a seek) is read from
 the planes the parser attached, and a reference found in neither raises
 RuntimeError.  Its planes are stored like any other picture's.
+
+While torch.profiler records, ``decode`` is the span ``tde.decode`` and its
+sections the spans ``tde.pack``, ``tde.upload``, ``tde.unpack``,
+``tde.gather``, ``tde.mc``, ``tde.residual``, ``tde.intra``,
+``tde.deblock`` and ``tde.sao`` (``tde.routed`` for a routed picture; see
+``tracing``).
 """
 from __future__ import annotations
 
@@ -57,7 +63,7 @@ import ctypes as ct
 import numpy as np
 import torch
 
-from . import _native
+from . import _native, tracing
 
 from .decoder import (TU_RDPCM, TU_RDPCM_VERTICAL, TU_TQ_BYPASS,
                       TU_TRANSFORM_SKIP, TU_USE_DST, FrameProgramData)
@@ -216,12 +222,13 @@ def _compiled_impl(refs_y, refs_cb, refs_cr, buf, sf_tables, st, layout,
     (read back from buf if None).  Returns the decoded planes, followed
     with fuse_store by the three rings (updated in place)."""
     std = dict(st)
-    if host_buf is None:
-        host_buf = buf.cpu().numpy()
-    feed = _split(buf, layout)
-    _expand_feed(feed, std)
-    return _frame_fn(refs_y, refs_cb, refs_cr, feed, sf_tables, std,
-                     _host_values(host_buf, layout))
+    with tracing.span("tde.unpack"):
+        if host_buf is None:
+            host_buf = buf.cpu().numpy()
+        feed = _split(buf, layout)
+        _expand_feed(feed, std)
+        host = _host_values(host_buf, layout)
+    return _frame_fn(refs_y, refs_cb, refs_cr, feed, sf_tables, std, host)
 
 
 # ---------------------------------------------------------------------------
@@ -239,106 +246,114 @@ def _frame_fn(refs_y, refs_cb, refs_cr, feed, sf_tables, st, host):
     w = torch.where
 
     # ---- per-cell PU parameter gather (from the natively painted pu_idx) --
-    pidx = feed["pu_idx"].reshape(-1)
-    covered = pidx >= 0
-    pu = feed["pu"]  # [Pcap, 10]: mv0x mv0y mv1x mv1y pf slot0 slot1 r0 r1 sl
-    pc = pidx.long().clamp(0, pu.shape[0] - 1)
-    pcell = pu[pc]
-    ref_pocs = feed["ref_pocs"]
-    cell = {"pf": w(covered, pcell[:, 4], 0)}
-    for l in (0, 1):
-        has = ((cell["pf"] >> l) & 1) != 0
-        cell[f"mv{l}x"] = w(has, pcell[:, 2 * l], 0)
-        cell[f"mv{l}y"] = w(has, pcell[:, 1 + 2 * l], 0)
-        cell[f"slot{l}"] = w(has, pcell[:, 5 + l], 0)
-        slot = pcell[:, 5 + l].long().clamp(0, ref_pocs.shape[0] - 1)
-        cell[f"poc{l}"] = w(has, ref_pocs[slot], NOREF)
-        cell[f"ridx{l}"] = w(has, pcell[:, 7 + l].clamp(min=0), 0)
-    cell["slice"] = pcell[:, 9].clamp(0, st["n_slices"] - 1)
+    with tracing.span("tde.gather"):
+        pidx = feed["pu_idx"].reshape(-1)
+        covered = pidx >= 0
+        # [Pcap, 10]: mv0x mv0y mv1x mv1y pf slot0 slot1 r0 r1 sl
+        pu = feed["pu"]
+        pc = pidx.long().clamp(0, pu.shape[0] - 1)
+        pcell = pu[pc]
+        ref_pocs = feed["ref_pocs"]
+        cell = {"pf": w(covered, pcell[:, 4], 0)}
+        for l in (0, 1):
+            has = ((cell["pf"] >> l) & 1) != 0
+            cell[f"mv{l}x"] = w(has, pcell[:, 2 * l], 0)
+            cell[f"mv{l}y"] = w(has, pcell[:, 1 + 2 * l], 0)
+            cell[f"slot{l}"] = w(has, pcell[:, 5 + l], 0)
+            slot = pcell[:, 5 + l].long().clamp(0, ref_pocs.shape[0] - 1)
+            cell[f"poc{l}"] = w(has, ref_pocs[slot], NOREF)
+            cell[f"ridx{l}"] = w(has, pcell[:, 7 + l].clamp(min=0), 0)
+        cell["slice"] = pcell[:, 9].clamp(0, st["n_slices"] - 1)
 
-    recs = feed["slice_recs"]
-    sl = cell["slice"].long()
-    wg = {"weighted": (recs[sl, 6] != 0).to(torch.int32),
-          "denom_l": recs[sl, 7], "denom_c": recs[sl, 8]}
-    for l in (0, 1):
-        r = cell[f"ridx{l}"].long().clamp(max=15)
-        wg[f"lw{l}"] = recs[sl, 16 + l * 16 + r]
-        wg[f"lo{l}"] = recs[sl, 48 + l * 16 + r]
-        for c in (0, 1):
-            wg[f"cw{l}{c}"] = recs[sl, 80 + (l * 16 + r) * 2 + c]
-            wg[f"co{l}{c}"] = recs[sl, 144 + (l * 16 + r) * 2 + c]
+        recs = feed["slice_recs"]
+        sl = cell["slice"].long()
+        wg = {"weighted": (recs[sl, 6] != 0).to(torch.int32),
+              "denom_l": recs[sl, 7], "denom_c": recs[sl, 8]}
+        for l in (0, 1):
+            r = cell[f"ridx{l}"].long().clamp(max=15)
+            wg[f"lw{l}"] = recs[sl, 16 + l * 16 + r]
+            wg[f"lo{l}"] = recs[sl, 48 + l * 16 + r]
+            for c in (0, 1):
+                wg[f"cw{l}{c}"] = recs[sl, 80 + (l * 16 + r) * 2 + c]
+                wg[f"co{l}{c}"] = recs[sl, 144 + (l * 16 + r) * 2 + c]
 
     # ---- inter prediction over the cell grid ----
-    Hc, Wc = H // sub_y, W // sub_x
-    if st["has_inter"] and host["mc_on"]:
-        y, cbp, crp = _mc_section(refs_y, refs_cb, refs_cr, cell, wg, st,
-                                  pb_h, pb_w, feed)
-        cov = covered.reshape(pb_h, pb_w)
-        m = cov.repeat_interleave(4, 0).repeat_interleave(4, 1)[:H, :W]
-        planes = [w(m, y, 0)]
-        if has_chroma:
-            mc_ = cov.repeat_interleave(4 // sub_y, 0).repeat_interleave(
-                4 // sub_x, 1)[:Hc, :Wc]
-            planes += [w(mc_, cbp, 0), w(mc_, crp, 0)]
-    else:
-        planes = [torch.zeros((H, W), dtype=torch.int32, device=dev)]
-        if has_chroma:
-            planes += [torch.zeros((Hc, Wc), dtype=torch.int32, device=dev)
-                       for _ in range(2)]
+    with tracing.span("tde.mc"):
+        Hc, Wc = H // sub_y, W // sub_x
+        if st["has_inter"] and host["mc_on"]:
+            y, cbp, crp = _mc_section(refs_y, refs_cb, refs_cr, cell, wg,
+                                      st, pb_h, pb_w, feed)
+            cov = covered.reshape(pb_h, pb_w)
+            m = cov.repeat_interleave(4, 0).repeat_interleave(4, 1)[:H, :W]
+            planes = [w(m, y, 0)]
+            if has_chroma:
+                mc_ = cov.repeat_interleave(4 // sub_y, 0) \
+                    .repeat_interleave(4 // sub_x, 1)[:Hc, :Wc]
+                planes += [w(mc_, cbp, 0), w(mc_, crp, 0)]
+        else:
+            planes = [torch.zeros((H, W), dtype=torch.int32, device=dev)]
+            if has_chroma:
+                planes += [torch.zeros((Hc, Wc), dtype=torch.int32,
+                                       device=dev) for _ in range(2)]
 
     # ---- residual bins (densify + dequant + IDCT) ----
-    bin_res = _residual_section(feed, sf_tables, st)
+    with tracing.span("tde.residual"):
+        bin_res = _residual_section(feed, sf_tables, st)
 
-    # ---- inter residual add + clip ----
-    if st.get("pallas_mc"):
-        _add_residual_stripes(planes, bin_res, feed, st)
-    for lg in () if st.get("pallas_mc") else st["lgs"]:
-        s = 1 << lg
-        bf = feed[f"bin{lg}"]
-        ar = torch.arange(s, device=dev)
-        for c, ch in ((0, "y"), (1, "cb"), (2, "cr")):
-            if c > 0 and not has_chroma:
-                continue
-            sc = bf[f"sc_{ch}"]  # [cap, 3] rows/x/y ; pad rows = -1
-            if sc.shape[0] == 0:
-                continue
-            rows = sc[:, 0]
-            blk = bin_res[lg][rows.long().clamp(0, bin_res[lg].shape[0] - 1)]
-            iy = sc[:, 2, None, None] + ar[None, :, None]
-            ix = sc[:, 1, None, None] + ar[None, None, :]
-            ok = (rows >= 0)[:, None, None].expand(-1, s, s)
-            planes[c] = _scatter(planes[c], iy.expand(-1, s, s),
-                                 ix.expand(-1, s, s), blk, ok, add=True)
-    planes[0] = planes[0].clamp(0, (1 << bd) - 1)
-    if has_chroma:
-        planes[1] = planes[1].clamp(0, (1 << bdc) - 1)
-        planes[2] = planes[2].clamp(0, (1 << bdc) - 1)
+        # ---- inter residual add + clip ----
+        if st.get("pallas_mc"):
+            _add_residual_stripes(planes, bin_res, feed, st)
+        for lg in () if st.get("pallas_mc") else st["lgs"]:
+            s = 1 << lg
+            bf = feed[f"bin{lg}"]
+            ar = torch.arange(s, device=dev)
+            for c, ch in ((0, "y"), (1, "cb"), (2, "cr")):
+                if c > 0 and not has_chroma:
+                    continue
+                sc = bf[f"sc_{ch}"]  # [cap, 3] rows/x/y ; pad rows = -1
+                if sc.shape[0] == 0:
+                    continue
+                rows = sc[:, 0]
+                blk = bin_res[lg][rows.long().clamp(
+                    0, bin_res[lg].shape[0] - 1)]
+                iy = sc[:, 2, None, None] + ar[None, :, None]
+                ix = sc[:, 1, None, None] + ar[None, None, :]
+                ok = (rows >= 0)[:, None, None].expand(-1, s, s)
+                planes[c] = _scatter(planes[c], iy.expand(-1, s, s),
+                                     ix.expand(-1, s, s), blk, ok, add=True)
+        planes[0] = planes[0].clamp(0, (1 << bd) - 1)
+        if has_chroma:
+            planes[1] = planes[1].clamp(0, (1 << bdc) - 1)
+            planes[2] = planes[2].clamp(0, (1 << bdc) - 1)
 
-    # ---- PCM scatter (pads carry index 1 << 30 and are dropped) ----
-    for c in range(len(planes)):
-        pcm = feed[f"pcm{c}"]
-        if pcm.shape[0]:
-            Wp = planes[c].shape[1]
-            idx = pcm[:, 0].long()
-            planes[c] = _scatter(planes[c], idx // Wp, idx % Wp, pcm[:, 1],
-                                 idx >= 0)
+        # ---- PCM scatter (pads carry index 1 << 30 and are dropped) ----
+        for c in range(len(planes)):
+            pcm = feed[f"pcm{c}"]
+            if pcm.shape[0]:
+                Wp = planes[c].shape[1]
+                idx = pcm[:, 0].long()
+                planes[c] = _scatter(planes[c], idx // Wp, idx % Wp,
+                                     pcm[:, 1], idx >= 0)
 
     # ---- intra super-wave scans (one merged scan over all planes) ----
-    if st["intra_bins"]:
-        bins_by_plane = _scatter_intra_bins(feed["irec"], host["irec"],
-                                            st["intra_bins"],
-                                            st["steps_cap"])
-        planes = _intra_scan_all(planes, bins_by_plane, bin_res, st,
-                                 host["nsteps"])
+    with tracing.span("tde.intra"):
+        if st["intra_bins"]:
+            bins_by_plane = _scatter_intra_bins(feed["irec"], host["irec"],
+                                                st["intra_bins"],
+                                                st["steps_cap"])
+            planes = _intra_scan_all(planes, bins_by_plane, bin_res, st,
+                                     host["nsteps"])
 
     # ---- loop filters ----
-    skip4 = (feed["cu4"] & 4) != 0
-    if st["pcm_lf_disable"]:
-        skip4 = skip4 | ((feed["cu4"] & 2) != 0)
-    if st["run_deblock"]:
-        planes = _deblock_section(planes, feed, recs, cell, skip4, st)
-    if st["run_sao"]:
-        planes = _sao_section(planes, feed, recs, skip4, st)
+    with tracing.span("tde.deblock"):
+        skip4 = (feed["cu4"] & 4) != 0
+        if st["pcm_lf_disable"]:
+            skip4 = skip4 | ((feed["cu4"] & 2) != 0)
+        if st["run_deblock"]:
+            planes = _deblock_section(planes, feed, recs, cell, skip4, st)
+    with tracing.span("tde.sao"):
+        if st["run_sao"]:
+            planes = _sao_section(planes, feed, recs, skip4, st)
     if st.get("fuse_store"):
         # the fused store: each decoded plane, edge-replicated, into its
         # ring slot (in place; the MC reads of this picture are done)
@@ -1014,8 +1029,13 @@ class FusedDecoder:
         return out
 
     def decode(self, prog: FrameProgramData):
-        if fdp.routed(prog, self.use_pallas_mc):
-            return self._decode_pipeline(prog)
+        with tracing.span("tde.decode"):
+            if fdp.routed(prog, self.use_pallas_mc):
+                with tracing.span("tde.routed"):
+                    return self._decode_pipeline(prog)
+            return self._decode_fused(prog)
+
+    def _decode_fused(self, prog):
         pk = self.packer
         pk.note_rext(prog)
         H, W = prog.height, prog.width
@@ -1034,12 +1054,14 @@ class FusedDecoder:
             slot = self._alloc_slot(prog.poc)
             slot_row = np.array([slot * self._stack_dims[c][0]
                                  for c in range(3)], np.int32)
-        if pallas and not pk.has_ccp and fdp.native_live(prog):
-            layout, buf, lgs, n_slices = pk.pack_native(prog, slot_map,
-                                                        slot_row)
-        else:
-            layout, buf, lgs, n_slices = pk.pack(prog, slot_map, slot_row,
-                                                 pallas_mc=pallas)
+        with tracing.span("tde.pack"):
+            if pallas and not pk.has_ccp and fdp.native_live(prog):
+                layout, buf, lgs, n_slices = pk.pack_native(prog, slot_map,
+                                                            slot_row)
+            else:
+                layout, buf, lgs, n_slices = pk.pack(prog, slot_map,
+                                                     slot_row,
+                                                     pallas_mc=pallas)
 
         sft = None
         if prog.scaling_factors is not None:
@@ -1079,12 +1101,14 @@ class FusedDecoder:
             "has_rdpcm": pk.has_rdpcm,
         }
         if not pallas:
-            dbuf = torch.from_numpy(buf).to(self.device)
+            with tracing.span("tde.upload"):
+                dbuf = torch.from_numpy(buf).to(self.device)
             out = _compiled_impl(refs[0], refs[1], refs[2], dbuf, sft, st,
                                  layout, host_buf=buf)
             self._store(prog.poc, out)
             return out
-        dbuf = self._sparse_upload(buf)
+        with tracing.span("tde.upload"):
+            dbuf = self._sparse_upload(buf)
         out_all = _compiled_impl(refs[0], refs[1], refs[2], dbuf, sft, st,
                                  layout, host_buf=buf)
         n_pl = 3 if has_chroma else 1

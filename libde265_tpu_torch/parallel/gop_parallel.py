@@ -15,6 +15,7 @@ import time
 
 import torch
 
+from .. import tracing
 from ..decoder import Decoder
 from ..fused_decode import FusedDecoder
 from .tiles import cuda_devices, on_device
@@ -121,9 +122,14 @@ class GopParallelDecoder:
         self.last_parse_s = None
 
     def decode_stream(self, data: bytes):
+        with tracing.span("tde.request"):
+            return self._decode_stream(data)
+
+    def _decode_stream(self, data):
         segs = split_segments(data, self.split_at_cra)
         t0 = time.perf_counter()
-        progs_per_seg = parse_segments(segs)
+        with tracing.span("tde.gop.parse"):
+            progs_per_seg = parse_segments(segs)
         self.last_parse_s = time.perf_counter() - t0
         out = []
         self.last_assignment = []
@@ -131,8 +137,9 @@ class GopParallelDecoder:
             k = i % len(self.devices)
             dev = self.devices[k]
             with on_device(dev):
-                fd = FusedDecoder(device=dev)
-                fd.plan_stream(progs)
+                with tracing.span("tde.gop.plan"):
+                    fd = FusedDecoder(device=dev)
+                    fd.plan_stream(progs)
                 out.extend(fd.decode(p) for p in progs)
             self.last_assignment.append(k)
         return out

@@ -14,8 +14,8 @@ import os
 import threading
 import time
 
+from . import tracing
 from .decoder import Decoder
-
 from .fused_decode import FusedDecoder
 
 
@@ -64,6 +64,10 @@ class PipelinedDecoder:
         On a one-core host the parse thread would contend with packing
         instead of overlapping it, so the pipeline parses first there.
         """
+        with tracing.span("tde.request") as req:
+            return self._decode_stream(data, chunk, on_frame, req)
+
+    def _decode_stream(self, data, chunk, on_frame, req):
         dec = Decoder(parse_only=True, keep_programs=True)
         outs = []
 
@@ -93,7 +97,8 @@ class PipelinedDecoder:
                 more = ct.c_int(1)
                 while more.value:
                     more.value = 0
-                    dec._lib.de265_decode(dec._ctx, ct.byref(more))
+                    with req.thread_span("tde.parse"):
+                        dec._lib.de265_decode(dec._ctx, ct.byref(more))
                     while dec._lib.de265_peek_next_picture(dec._ctx):
                         dec._lib.de265_release_next_picture(dec._ctx)
             except Exception as e:  # noqa: BLE001 - re-raised by the caller
@@ -106,14 +111,15 @@ class PipelinedDecoder:
         i = 0
         try:
             while True:
-                n = dec.num_programs()
-                while i < n:
+                while i < dec.num_programs():
                     emit(i)
                     i += 1
                 if done.is_set() and i == dec.num_programs():
                     break
-                if i >= n:
-                    time.sleep(0.0002)
+                # waiting for the parse thread: one span a wait, not a poll
+                with tracing.span("tde.stream.wait"):
+                    while i >= dec.num_programs() and not done.is_set():
+                        time.sleep(0.0002)
         finally:
             t.join()
         if err:
