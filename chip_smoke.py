@@ -22,7 +22,8 @@ Phases (any failure raises and the script exits non-zero):
      each stream alone (host ms per picture), the native
      against the numpy packer's host ms on every picture of both streams
      (their buffers equal word for word), synced per-picture milliseconds
-     and launches (I and P; B1, B4, B8 and B9 once each in every picture),
+     and launches (I and P; B1, B4, the deblocking edge parameters, B8
+     and B9 once each in every picture),
      the synced feed pack (whichever packer ran), intra scan and
      deblocking of single pictures, the deblocking, the residual
      and the feed upload sections of the first I and P picture alone
@@ -37,7 +38,8 @@ Phases (any failure raises and the script exits non-zero):
      it sees no device time, up to five times, else the run fails) and
      bound; B5 timed
      on the I picture's calls as well (bins with no segment), and B1's,
-     B4's, B5's, B2's, B8's and B9's calls checked to run no device work
+     B4's, B5's, B2's, B8's, B9's and the edge parameters' calls checked
+     to run no device work
      besides their kernel; B4 (every size bin of a picture in one call)
      also on random bins of the P picture's sizes; B1's library
      yardstick, the one indexing call of its plain version, timed.  B8
@@ -60,9 +62,10 @@ Phases (any failure raises and the script exits non-zero):
      9-11 and go to pipeline.reconstruct) decoded with PipelinedDecoder()
      as in phase 3 (counts set to 0 before, read after, every frame
      bit-exact, 3 pictures through the pipeline), then picture by picture
-     (synced ms of the routed and the fused pictures; B8, B9 once and B10
-     three times in a routed picture, no other kernel), the first routed
-     picture's B8, B9 and B10 calls against their plain versions, the
+     (synced ms of the routed and the fused pictures; the edge parameters,
+     B8, B9 once and B10 three times in a routed picture, no other
+     kernel), the first routed picture's edge-parameter, B8, B9 and B10
+     calls against their plain versions, the
      last routed picture's stages (residuals, MC, intra, deblocking, SAO;
      synced ms, device_intra False and True in turns), that picture on the
      card against the CPU, and a 10-bit reconstruct_stream chain (64x48,
@@ -80,10 +83,11 @@ Phases (any failure raises and the script exits non-zero):
        b. ShardedTileDecoder over 8 entries on two 1920x1088 streams with
           CTB 32 and 4x2 tiles of 480x544 (4 frames, intra period 8), one
           gated and one filtering across tiles (the halo exchange): synced
-          ms and launches per picture (B8 and B9 8, B10 24: 3 per tile, in
-          the tile program or in the halo filter); then picture 0 of each
-          stream again with its kernel calls recorded, each call of B4,
-          the scan, B8, B9 and B10 (the tile shapes, and the halo-padded
+          ms and launches per picture (the edge parameters, B8 and B9 8,
+          B10 24: 3 per tile, in the tile program or in the halo filter);
+          then picture 0 of each stream again with its kernel calls
+          recorded, each call of B4, the scan, the edge parameters, B8, B9
+          and B10 (the tile shapes, and the halo-padded
           ones with their masks) against its plain version, exact;
        c. sharded_filter_pipeline at 1088x1928 with 4 row shards, equal
           to the single-device composition of luma_pass and to that of
@@ -96,10 +100,11 @@ Phases (any failure raises and the script exits non-zero):
           P pictures: an I picture takes seconds of host time here, so
           one, not the stream's two) through DeviceDecoder() (the default
           device) from parse-only programs: synced ms per I and P
-          picture, B8 and B9 once and B10 three times in every picture (no
-          other kernel: the rest is PyTorch), the intra wavefront's
-          intra_wave_kernel calls and host plan ms per picture, picture
-          0's B8, B9 and B10 calls against their plain versions, then one
+          picture, the edge parameters, B8 and B9 once and B10 three
+          times in every picture (no other kernel: the rest is PyTorch),
+          the intra wavefront's intra_wave_kernel calls and host plan ms
+          per picture, picture 0's edge-parameter, B8, B9 and B10 calls
+          against their plain versions, then one
           P and one I picture decoded again under torch.profiler (device
           busy ms, idle share, device operations);
        b. the phase-6 stripe stream through DeviceDecoder(), pictures 9-11
@@ -113,7 +118,8 @@ Phases (any failure raises and the script exits non-zero):
 
 The kernels line's launches are the sums over the main-path runs of
 phases 3, 6, 7 and 8.  The last three lines of stdout are the kernels JSON
-object (all twelve rows: B1-B10, the fused step and the persistent scan),
+object (all thirteen rows: B1-B10, the deblocking edge parameters, the
+fused step and the persistent scan),
 the card's nvidia-smi line and the result line {"ok": true, "device":
 {...}}.
 Nothing here imports JAX or the JAX package libde265_tpu.
@@ -143,6 +149,7 @@ B4, B5 = "B4 densify_bins", "B5 residual_stripes"
 B6, B7 = "B6 border_gather", "B7 window_scatter"
 B8, B9 = "B8 deblock_luma (V+H)", "B9 deblock_chroma (V+H)"
 B10 = "B10 sao_plane_fused"
+PARAMS = "B8+B9 deblock_params (edge parameters)"
 STEP = "B6+B7 intra_step (fused)"
 SCAN = "B6+B7 intra_scan (persistent)"
 
@@ -169,6 +176,10 @@ KERNELS = {
          "chroma_launches", 20),
     B10: ("libde265_tpu_torch/csrc/sao.cu",
           "libde265_tpu/ops/sao_pallas.py:120", "sao_cuda", "launches", 25),
+    # no TPU kernel: the JAX program derives the parameters with XLA ops
+    PARAMS: ("libde265_tpu_torch/csrc/deblock.cu",
+             "libde265_tpu/tpu_decode.py:370 (_edge_params_jnp, XLA)",
+             "deblock_cuda", "param_launches", 15),
     SCAN: ("libde265_tpu_torch/csrc/intra.cu",
            "libde265_tpu/ops/intra_window_pallas.py:133,252",
            "intra_cuda", "scan_launches", 60),
@@ -192,7 +203,8 @@ HELD = {
 }
 ALL = {**KERNELS, **HELD}
 NAMES = list(ALL)
-ROWS = [B1, B2, B3, B4, B5, B6, B7, B8, B9, B10, STEP, SCAN]  # kernels line
+ROWS = [B1, B2, B3, B4, B5, B6, B7, B8, B9, PARAMS, B10, STEP,
+        SCAN]  # kernels line
 INTRA = (SCAN, STEP, B6, B7)
 
 # wrapper (module, function) -> family
@@ -208,6 +220,7 @@ WRAPPERS = {("expand", "expand_blocks"): B1,
             ("deblock_cuda", "luma_pass_h"): B8,
             ("deblock_cuda", "chroma_pass_stacked"): B9,
             ("deblock_cuda", "chroma_pass_stacked_h"): B9,
+            ("deblock_cuda", "deblock_params"): PARAMS,
             ("sao_cuda", "sao_plane_fused"): B10,
             ("intra_cuda", "intra_scan"): SCAN,
             ("intra_cuda", "intra_step"): STEP,
@@ -873,7 +886,8 @@ def profile_picture(progs, idx):
     """torch.profiler over one picture (the ones before it decoded first,
     untraced): wall ms, device busy ms (the sum of kernel self times, one
     stream), and the device ms and launches of the intra scan, of the
-    deblocking kernels (B8, B9) and of B4 in the picture."""
+    deblocking kernels (the edge parameters, B8, B9) and of B4 in the
+    picture."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     import libde265_tpu_torch as lt
@@ -893,7 +907,8 @@ def profile_picture(progs, idx):
     busy = sum(_device_us(e) for e in ka) / 1000
     named = {e.key: (_device_us(e) / 1000, e.count) for e in ka
              if any(k in e.key for k in ("intra", "deblock_kernel",
-                                         "densify")) and _device_us(e) > 0}
+                                         "deblock_params", "densify")) and
+             _device_us(e) > 0}
     return wall, busy, named
 
 
@@ -1010,6 +1025,8 @@ def capture_inputs(fd, progs, trace_scan=True, keep=None):
 
     for m, name in WRAPPERS:
         mod = ops_module(m)
+        if not hasattr(mod, name):    # an older checkout's port
+            continue
         saved[(m, name)] = getattr(mod, name)
         setattr(mod, name, wrap(name, saved[(m, name)]))
     try:
@@ -1358,6 +1375,8 @@ def plain_of(name):
         return coef_cuda.densify_bins_plain
     if name in ("deblock_luma", "deblock_chroma"):
         return getattr(deblock_cuda, f"{name}_plain")
+    if name == "deblock_params":
+        return deblock_cuda.deblock_params_plain
     if name == "luma_pass":
         return _luma_pass
     if name == "luma_pass_h":
@@ -1446,6 +1465,13 @@ def _work(name, args, kw, out):
             4 * (N + 1) + 4 * min(cv.shape[0], (int(coff[N]) + 3) // 4)
             for cv, coff, N, _ in bins)
         nout = buf.numel()
+    elif name == "deblock_params":
+        # every input grid read once and the arena written once (the
+        # chroma no_p / no_q are views of the luma ones)
+        arena = sum(t.numel() for t in out["v"] + out["h"]) + sum(
+            out[k][0].numel() for k in ("cv", "ch") if k in out)
+        nbytes = _nbytes(args) + _nbytes(kw) + 4 * arena
+        nout = arena
     elif name == "residual_stripes":
         res, nseg, sw = args
         live = int(nseg.clamp(max=sw.shape[1]).sum())
@@ -1856,8 +1882,8 @@ def many_refs_phase(smi):
         c = read_counts()
         if i in routed:
             ms_r.append(ms)
-            if (c[B8], c[B9], c[B10]) != (1, 1, 3) or \
-                    sum(c.values()) != 5:
+            if (c[PARAMS], c[B8], c[B9], c[B10]) != (1, 1, 1, 3) or \
+                    sum(c.values()) != 6:
                 raise AssertionError(f"routed picture {i}: launches "
                                      f"{json.dumps(c)}")
         else:
@@ -1868,20 +1894,22 @@ def many_refs_phase(smi):
     log(f"many references: routed pictures {routed} ms (synced) "
         f"{[round(m, 2) for m in ms_r]}, fused pictures ms "
         f"{[round(m, 2) for m in ms_f]} (median "
-        f"{statistics.median(ms_f):.2f}); B8 / B9 / B10 launches per routed "
-        f"picture 1 / 1 / 3 on {smi}")
+        f"{statistics.median(ms_f):.2f}); edge parameters / B8 / B9 / B10 "
+        f"launches per routed picture 1 / 1 / 1 / 3 on {smi}")
 
     # the routed picture's kernel calls against their plain versions
     fd9 = lt.FusedDecoder()
     for p in pprogs[:routed[0]]:
         fd9.decode(p)
     (cap,) = capture_inputs(fd9, pprogs[routed[0]:routed[0] + 1])
-    if set(cap) != {"deblock_luma", "deblock_chroma", "sao_plane_fused"}:
+    if set(cap) != {"deblock_params", "deblock_luma", "deblock_chroma",
+                    "sao_plane_fused"}:
         raise AssertionError(f"routed picture: kernels {sorted(cap)}")
     err, ncases = compare_kernels([(f"routed picture {routed[0]}", cap)])
-    log(f"routed picture {routed[0]}: B8, B9 and B10 equal to their plain "
+    log(f"routed picture {routed[0]}: the edge parameters, B8, B9 and B10 "
+        f"equal to their plain "
         f"versions on its calls (tolerance 0): "
-        f"{json.dumps({n: ncases[n] for n in (B8, B9, B10)})}")
+        f"{json.dumps({n: ncases[n] for n in (PARAMS, B8, B9, B10)})}")
 
     # the stages of the last routed picture, from the decoder's DPB
     prog = pprogs[routed[-1]]
@@ -2095,10 +2123,11 @@ def sharded_tile_phase(smi):
         counts = read_counts()
         assert_bit_exact(outs, progs, f"tile-sharded ({what})")
         for i, c in enumerate(per):
-            if (c.get(B8), c.get(B9), c.get(B10)) != (8, 8, 24):
+            if (c.get(PARAMS), c.get(B8), c.get(B9), c.get(B10)) != \
+                    (8, 8, 8, 24):
                 raise AssertionError(f"tile-sharded ({what}) picture {i}: "
                                      f"launches {json.dumps(c)}")
-        for n in (B4, SCAN, B8, B9, B10):
+        for n in (B4, SCAN, PARAMS, B8, B9, B10):
             if counts[n] == 0:
                 raise AssertionError(f"tile-sharded ({what}): no {n} launch")
         log(f"tile-sharded ({what}): 4 frames bit-exact on 8 entries of the "
@@ -2147,22 +2176,24 @@ def sharded_kernel_check(prog, launches, what, smi):
     calls = {}
     for name, c in cap.items():
         calls[FAMILY[name]] = calls.get(FAMILY[name], 0) + len(c)
-    if calls != launches or set(calls) != {B4, SCAN, B8, B9, B10}:
+    if calls != launches or set(calls) != {B4, SCAN, PARAMS, B8, B9, B10}:
         raise AssertionError(f"tile-sharded ({what}) picture 0: calls "
                              f"{json.dumps(calls)}, main-path launches "
                              f"{json.dumps(launches)}")
     shapes = {name: sorted({tuple(a[0].shape) for a, _ in c})
               for name, c in cap.items()
-              if name not in ("densify_bins", "intra_scan")}
+              if name not in ("densify_bins", "intra_scan",
+                              "deblock_params")}
     shapes["intra_scan"] = sorted({tuple(p.shape) for a, _ in
                                    cap.get("intra_scan", []) for p in a[0]})
     err, ncases = compare_kernels([(f"tile-sharded ({what}) picture 0",
                                     cap)])
     del cap
     torch.cuda.synchronize()
-    log(f"tile-sharded ({what}) picture 0: B4, the scan, B8, B9 and B10 "
-        f"equal to their plain versions on its calls (tolerance 0): "
-        f"{json.dumps({n: ncases[n] for n in (B4, SCAN, B8, B9, B10)})}; "
+    held = (B4, SCAN, PARAMS, B8, B9, B10)
+    log(f"tile-sharded ({what}) picture 0: B4, the scan, the edge "
+        f"parameters, B8, B9 and B10 equal to their plain versions on its "
+        f"calls (tolerance 0): {json.dumps({n: ncases[n] for n in held})}; "
         f"plane shapes {json.dumps(shapes)}; checked in "
         f"{time.perf_counter() - t0:.1f} s on {smi}")
 
@@ -2250,9 +2281,10 @@ def device_decoder_run(what, pprogs, progs, routed=0, waves=None,
     """One main-path run of DeviceDecoder() over parse-only programs:
     counts set to 0, every picture decoded and synchronised (synced ms and
     its launches, read as differences), counts read; every picture held
-    bit-exact against the oracle's, B8 and B9 once and B10 three times in
-    each (nothing else: the rest is PyTorch), `routed` pictures that the
-    JAX module sends to its pipeline or cannot decode.  waves: a list that gets each picture's number of
+    bit-exact against the oracle's, the edge parameters, B8 and B9 once
+    and B10 three times in each (nothing else: the rest is PyTorch),
+    `routed` pictures that the JAX module sends to its pipeline or cannot
+    decode.  waves: a list that gets each picture's number of
     intra_wave_kernel calls and host ms in intra_wave.plan_blocks.
     capture: a dict that gets picture 0's kernel calls (capture_inputs's
     form).  Returns ((counts, seconds), per-picture [(ms, intra
@@ -2293,7 +2325,8 @@ def device_decoder_run(what, pprogs, progs, routed=0, waves=None,
             torch.cuda.synchronize()
             ms = 1000 * (time.perf_counter() - t0)
             c = {n: v - before[n] for n, v in read_counts().items()}
-            if (c[B8], c[B9], c[B10]) != (1, 1, 3) or sum(c.values()) != 5:
+            if (c[PARAMS], c[B8], c[B9], c[B10]) != (1, 1, 1, 3) or \
+                    sum(c.values()) != 6:
                 raise AssertionError(f"{what} picture {i}: launches "
                                      f"{json.dumps(c)}")
             rows.append((ms, len(p.pus) == 0))
@@ -2373,18 +2406,21 @@ def device_decoder_phase(smi, pprogs, progs, iprogs, stripe_pprogs,
         log(f"DeviceDecoder 1080p P-GOP: {kind} pictures ms (synced) {ms}, "
             f"median {statistics.median(ms):.2f}; per picture "
             f"intra_wave_kernel calls {[n for n, _ in w]}, host ms in "
-            f"intra_wave.plan_blocks {[round(m, 1) for _, m in w]}; B8 / B9 "
-            f"/ B10 launches per picture 1 / 1 / 3 on {smi}")
+            f"intra_wave.plan_blocks {[round(m, 1) for _, m in w]}; edge "
+            f"parameters / B8 / B9 / B10 launches per picture 1 / 1 / 1 / 3 "
+            f"on {smi}")
     log(f"DeviceDecoder 1080p P-GOP: frames 0-{gop - 1} bit-exact from "
         f"parse-only programs, {gop / run_a[1]:.4f} fps; launches "
         f"{json.dumps(run_a[0])}")
-    if set(cap) != {"deblock_luma", "deblock_chroma", "sao_plane_fused"}:
+    if set(cap) != {"deblock_params", "deblock_luma", "deblock_chroma",
+                    "sao_plane_fused"}:
         raise AssertionError(f"DeviceDecoder picture 0: kernels "
                              f"{sorted(cap)}")
     err, ncases = compare_kernels([("DeviceDecoder picture 0", cap)])
-    log(f"DeviceDecoder picture 0: B8, B9 and B10 equal to their plain "
+    log(f"DeviceDecoder picture 0: the edge parameters, B8, B9 and B10 "
+        f"equal to their plain "
         f"versions on its calls (tolerance 0): "
-        f"{json.dumps({n: ncases[n] for n in (B8, B9, B10)})}")
+        f"{json.dumps({n: ncases[n] for n in (PARAMS, B8, B9, B10)})}")
     for kind, idx in (("P", 1), ("I", 0)):
         wall, busy, n_ops = profile_decode(dd, pprogs[idx])
         log(f"profiled DeviceDecoder {kind} picture {idx}: wall "
@@ -2543,9 +2579,10 @@ def main():
             if c[SCAN] > 1 or (intra and c[SCAN] != 1) or c[STEP]:
                 raise AssertionError(f"{what}: {c[SCAN]} scan and {c[STEP]} "
                                      f"fused step launches in a picture")
-            if c[B8] != 1 or c[B9] != 1:
-                raise AssertionError(f"{what}: {c[B8]} B8 and {c[B9]} B9 "
-                                     f"launches in a picture, not 1 / 1")
+            if c[PARAMS] != 1 or c[B8] != 1 or c[B9] != 1:
+                raise AssertionError(f"{what}: {c[PARAMS]} edge-parameter, "
+                                     f"{c[B8]} B8 and {c[B9]} B9 launches "
+                                     f"in a picture, not 1 / 1 / 1")
             if c[B4] != 1 or c[B1] != 1:
                 raise AssertionError(f"{what}: {c[B4]} B4 and {c[B1]} B1 "
                                      f"launches in a picture, not 1 / 1")
@@ -2625,13 +2662,15 @@ def main():
         f"{_bound(B5, b5_i[2], b5_i[3])[0]:.4f} ms ({b5_i[2]} bytes) on "
         f"{smi}")
     # B5, B2, B8, B9, B4 and B1 allocate their outputs unfilled and copy
-    # nothing: the kernel must be the only device work of a call
+    # nothing, the edge parameters write a kept arena: the kernel must be
+    # the only device work of a call
     for name, mark in (("expand_blocks", "expand_kernel"),
                        ("densify_bins", "densify_bins_kernel"),
                        ("residual_stripes", "residual_kernel"),
                        ("paint_pu_idx", "paint_kernel"),
                        ("deblock_luma", "deblock_kernel"),
-                       ("deblock_chroma", "deblock_kernel")):
+                       ("deblock_chroma", "deblock_kernel"),
+                       ("deblock_params", "deblock_params_kernel")):
         args, kw = caps[first_p][name][0]
         seen = device_kernels(lambda: _call(kernel_of(name), name, args, kw))
         if not seen:

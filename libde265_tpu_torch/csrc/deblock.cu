@@ -47,6 +47,14 @@
 // every sample, plus the parameters.  TH and NT are template arguments
 // (16 or 32 rows; 64, 128 or 256 threads), chosen per kernel by the
 // wrapper from a sweep (PERF.md).
+//
+// The edge parameters of a picture (tde_deblock_params, below) come from
+// one more launch: one thread per 4-sample segment of one luma edge,
+// vertical and horizontal, derives bS (spec 8.7.2.4), beta and tc
+// (8.7.2.5.3) and, on every chroma edge, both channels' tc (8.7.2.5.5)
+// from the per-4x4 grids, the per-CTB slice and tile grids and the slice
+// records, and writes them into one int32 arena that B8 and B9 read as
+// strided views.  Nothing of it goes back to the host.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -365,7 +373,189 @@ int launch(const Args* a, void* stream) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The edge parameters of a picture (replaces the PyTorch composition of
+// ops/deblock_cuda.deblock_params_plain, the port of the JAX program's
+// _edge_params_jnp, its gate() and its chroma tc).
+// ---------------------------------------------------------------------------
+
+__constant__ int kBeta[52] = {
+    0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  6,  7,
+    8,  9,  10, 11, 12, 13, 14, 15, 16, 17, 18, 20, 22, 24, 26, 28, 30, 32,
+    34, 36, 38, 40, 42, 44, 46, 48, 50, 52, 54, 56, 58, 60, 62, 64};
+__constant__ int kTc[54] = {
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,  0,
+    1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3,  4,
+    4, 4, 5, 5, 6, 6, 7, 8, 9, 10, 11, 13, 14, 16, 18, 20, 22, 24};
+__constant__ int kChromaQp[14] = {29, 30, 31, 32, 33, 33, 34,
+                                  34, 35, 35, 36, 36, 37, 37};
+
+constexpr int kNoRef = -1000000;   // the POC of a list a cell does not use
+constexpr int kParamThreads = 256;
+
+// One launch's inputs and outputs.  Per-4x4 grids: h4 x w4, row pitch w4
+// (cu4 bit 0 intra; nzc4 bit 0; dbf4 bits 0-3 TU edge V, H, PU edge V, H;
+// qp4; unfilt a byte, nonzero where the loop filters leave the samples;
+// the cell grids pf, mv, poc as the PU gather gives them; allow_v / allow_h
+// optional, null = every edge).  Per-CTB grids: row pitch ctb_w, a CTB of
+// cs4 x cs4 cells.  Slice records: row pitch rec_pitch,
+// columns 1 deblocking disabled, 2 beta offset, 3 tc offset, 9 filter
+// across slices, 10 / 11 Cb / Cr QP offset.
+struct ParamArgs {
+  const int32_t *cu4, *nzc4, *dbf4, *qp4;
+  const uint8_t* unfilt;
+  const int32_t *pf, *mv[4], *poc[2];   // mv: 0x 0y 1x 1y
+  const int32_t *allow_v, *allow_h;
+  const int32_t *slice_idx, *slice_addr, *tile_id, *recs;
+  long long rec_pitch;
+  int ctb_w, cs4, n_slices, across_tiles;
+  int h4, w4, bd, bdc, sub_x, sub_y, is420;
+  // outputs: lv [5][h4][ev], lh [5][eh][w4] (bs, beta, tc, no_p, no_q);
+  // cv [2][h4][ecv], ch [2][ech][w4] (tc of Cb, Cr); chroma ones only
+  // where cv / ch are set
+  int32_t *lv, *lh, *cv, *ch;
+  int ev, eh, ecv, ech;
+};
+
+__device__ __forceinline__ bool far4(int ax, int ay, int bx, int by) {
+  return abs(ax - bx) >= 4 || abs(ay - by) >= 4;
+}
+
+// bS of a P / Q cell pair that is neither intra nor a coded TU edge:
+// the motion rule of spec 8.7.2.4.
+__device__ __forceinline__ int motion_bs(const ParamArgs& a, int pi, int qi) {
+  const int pfp = __ldg(a.pf + pi), pfq = __ldg(a.pf + qi);
+  int rp[2], rq[2], mp[2][2], mq[2][2];
+#pragma unroll
+  for (int l = 0; l < 2; ++l) {
+    const bool hp = (pfp >> l) & 1, hq = (pfq >> l) & 1;
+    rp[l] = hp ? __ldg(a.poc[l] + pi) : kNoRef;
+    rq[l] = hq ? __ldg(a.poc[l] + qi) : kNoRef;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      mp[l][c] = hp ? __ldg(a.mv[2 * l + c] + pi) : 0;
+      mq[l][c] = hq ? __ldg(a.mv[2 * l + c] + qi) : 0;
+    }
+  }
+  const bool same = (rp[0] == rq[0] && rp[1] == rq[1]) ||
+                    (rp[0] == rq[1] && rp[1] == rq[0]);
+  if (!same) return 1;     // different reference pictures
+  const bool straight = far4(mp[0][0], mp[0][1], mq[0][0], mq[0][1]) ||
+                        far4(mp[1][0], mp[1][1], mq[1][0], mq[1][1]);
+  const bool crossed = far4(mp[0][0], mp[0][1], mq[1][0], mq[1][1]) ||
+                       far4(mp[1][0], mp[1][1], mq[0][0], mq[0][1]);
+  if (rp[0] != rp[1]) return (rp[0] == rq[0] ? straight : crossed) ? 1 : 0;
+  return (straight && crossed) ? 1 : 0;
+}
+
+// Threads [0, h4 * ev) take the vertical edges (segment row y, edge j at
+// x = 8(j + 1): P cell column 2j + 1, Q cell 2j + 2), the rest the
+// horizontal ones (edge i at y = 8(i + 1), segment column x).
+__global__ void __launch_bounds__(kParamThreads)
+deblock_params_kernel(const ParamArgs a) {
+  const long long nv = (long long)a.h4 * a.ev;
+  const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= nv + (long long)a.eh * a.w4) return;
+  const bool vertical = u < nv;
+  int e, s, qy, qx, py, px;     // edge, segment; Q and P cells
+  if (vertical) {
+    s = (int)(u / a.ev);
+    e = (int)(u % a.ev);
+    qy = py = s;
+    qx = 2 * e + 2;
+    px = qx - 1;
+  } else {
+    const long long k = u - nv;
+    e = (int)(k / a.w4);
+    s = (int)(k % a.w4);
+    qx = px = s;
+    qy = 2 * e + 2;
+    py = qy - 1;
+  }
+  const int qi = qy * a.w4 + qx, pi = py * a.w4 + px;
+
+  // the Q side's slice governs; an edge between slices or tiles is
+  // filtered only where that slice and the picture allow it
+  const int cq = (qy / a.cs4) * a.ctb_w + qx / a.cs4;
+  const int cp = (py / a.cs4) * a.ctb_w + px / a.cs4;
+  const int sl = min(max(__ldg(a.slice_idx + cq), 0), a.n_slices - 1);
+  const int32_t* rec = a.recs + sl * a.rec_pitch;
+  bool allow = (__ldg(a.slice_addr + cq) == __ldg(a.slice_addr + cp) ||
+                __ldg(rec + 9) != 0) &&
+               (a.across_tiles ||
+                __ldg(a.tile_id + cq) == __ldg(a.tile_id + cp)) &&
+               __ldg(rec + 1) == 0;
+  const int32_t* mask = vertical ? a.allow_v : a.allow_h;
+  if (mask != nullptr) allow = allow && __ldg(mask + qi) != 0;
+
+  const int dbf = __ldg(a.dbf4 + qi);
+  const bool tu = (dbf & (vertical ? 1 : 2)) != 0;
+  const bool pu = (dbf & (vertical ? 4 : 8)) != 0;
+  int bs = 0;
+  if ((tu || pu) && allow) {
+    if ((__ldg(a.cu4 + pi) & 1) || (__ldg(a.cu4 + qi) & 1))
+      bs = 2;
+    else if (tu && ((__ldg(a.nzc4 + pi) & 1) || (__ldg(a.nzc4 + qi) & 1)))
+      bs = 1;
+    else
+      bs = motion_bs(a, pi, qi);
+  }
+  const int qp_l = (__ldg(a.qp4 + pi) + __ldg(a.qp4 + qi) + 1) >> 1;
+  const int toff = __ldg(rec + 3);
+  const int beta = kBeta[min(max(qp_l + __ldg(rec + 2), 0), 51)]
+                   << (a.bd - 8);
+  const int tc = kTc[min(max(qp_l + 2 * (bs - 1) + toff, 0), 53)]
+                 << (a.bd - 8);
+
+  const long long plane = vertical ? (long long)a.h4 * a.ev
+                                   : (long long)a.eh * a.w4;
+  const long long o = vertical ? (long long)s * a.ev + e
+                               : (long long)e * a.w4 + s;
+  int32_t* out = vertical ? a.lv : a.lh;
+  out[o] = bs;
+  out[plane + o] = beta;
+  out[2 * plane + o] = tc;
+  out[3 * plane + o] = a.unfilt[pi] != 0;
+  out[4 * plane + o] = a.unfilt[qi] != 0;
+
+  // chroma edge k lies on luma edge k * sub + sub - 1
+  int32_t* cout = vertical ? a.cv : a.ch;
+  const int sub = vertical ? a.sub_x : a.sub_y;
+  if (cout == nullptr || e % sub != sub - 1) return;
+  const int k = e / sub;
+  const long long cplane = vertical ? (long long)a.h4 * a.ecv
+                                    : (long long)a.ech * a.w4;
+  const long long co = vertical ? (long long)s * a.ecv + k
+                                : (long long)k * a.w4 + s;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    int t = 0;
+    if (bs == 2) {
+      const int qpi = qp_l + __ldg(rec + 10 + c);
+      const int qpc = !a.is420 ? min(max(qpi, 0), 51)
+                      : qpi < 30 ? qpi
+                      : qpi > 43 ? qpi - 6
+                                 : kChromaQp[qpi - 30];
+      t = kTc[min(max(qpc + 2 + toff, 0), 53)] << (a.bdc - 8);
+    }
+    cout[c * cplane + co] = t;
+  }
+}
+
+int launch_params(const ParamArgs* a, void* stream) {
+  const long long n = (long long)a->h4 * a->ev + (long long)a->eh * a->w4;
+  if (n <= 0) return 0;
+  const long long blocks = (n + kParamThreads - 1) / kParamThreads;
+  deblock_params_kernel<<<(unsigned)blocks, kParamThreads, 0,
+                          (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int tde_deblock_params(const void* args, void* stream) {
+  return launch_params(static_cast<const ParamArgs*>(args), stream);
+}
 
 extern "C" int tde_deblock_luma(const void* args, void* stream) {
   return launch<true>(static_cast<const Args*>(args), stream);

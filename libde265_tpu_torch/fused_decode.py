@@ -74,7 +74,8 @@ from .feed import (AVAIL_WORDS, MAX_REFS, NOREF, RING_SLOTS, WAVE_CAP,
                    FeedPacker)
 from .frame_helpers import (_cells_to_plane, _mc_plane, _merge,
                             deblock_planes)
-from .ops import coef_cuda, expand, intra_cuda, mc_seg, sao_cuda
+from .ops import (coef_cuda, deblock_cuda, expand, intra_cuda, mc_seg,
+                  sao_cuda)
 from .ops import intra_window as iw
 from .ops import transform as tx
 from .ops.intra_wave import wave_predict
@@ -736,30 +737,20 @@ def _edge_ok_jnp(emap, feed, recs, sidx, cs, Hc, Wc, st):
 
 
 def _deblock_section(planes, feed, recs, cell, skip4, st):
-    """Deblock V then H, luma and chroma, from the per-4x4 metadata: one
-    B8 call for luma and one B9 call for both chroma planes, each on the
-    unpadded planes, returning contiguous planes (frame_helpers.
-    deblock_planes).  The feed's optional positional masks allow_xv /
-    allow_xh (the sharded decode's halo filter) gate the edges too."""
-    pb_h, pb_w = feed["qp4"].shape
-    dbf = feed["dbf4"]
-    meta = {
-        "intra": feed["cu4"] & 1,
-        "nzc": feed["nzc4"] & 1,
-        "tu_edge_v": ((dbf & 1) != 0).to(torch.int32),
-        "tu_edge_h": ((dbf & 2) != 0).to(torch.int32),
-        "pu_edge_v": ((dbf & 4) != 0).to(torch.int32),
-        "pu_edge_h": ((dbf & 8) != 0).to(torch.int32),
-        "qp": feed["qp4"],
-        "pf": cell["pf"].reshape(pb_h, pb_w),
-        "mv": [[cell[f"mv{l}x"].reshape(pb_h, pb_w),
-                cell[f"mv{l}y"].reshape(pb_h, pb_w)] for l in (0, 1)],
-        "rp": [cell[f"poc{l}"].reshape(pb_h, pb_w) for l in (0, 1)],
-        "unfilt": skip4.to(torch.int32),
-    }
+    """Deblock V then H, luma and chroma (frame_helpers.deblock_planes):
+    the edge parameters from the feed's packed per-4x4 grids, the gather's
+    cell grids and the skip mask in one launch, then one B8 call for luma
+    and one B9 call for both chroma planes, each on the unpadded planes;
+    returns contiguous planes.  The feed's optional positional masks
+    allow_xv / allow_xh (the sharded decode's halo filter) gate the edges
+    too."""
+    grids = {k: feed[k] for k in deblock_cuda.GRID_KEYS}
+    grids["unfilt"] = skip4
+    for k in deblock_cuda.CELL_KEYS:
+        grids[k] = cell[k]
     allow = (feed["allow_xv"], feed["allow_xh"]) if "allow_xv" in feed \
         else None
-    return deblock_planes(planes, meta, recs, feed["slice_idx"],
+    return deblock_planes(planes, grids, recs, feed["slice_idx"],
                           feed["slice_addr"], feed["tile_id"], st, allow)
 
 

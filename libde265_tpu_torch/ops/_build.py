@@ -31,6 +31,7 @@ SIGNATURES = {
     "tde_densify_bins": [_P, _P],      # (const Args*, stream)
     "tde_deblock_luma": [_P, _P],      # (const Args*, stream)
     "tde_deblock_chroma": [_P, _P],
+    "tde_deblock_params": [_P, _P],
     "tde_sao_plane": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tde_border_gather": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
     "tde_window_scatter": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P],

@@ -46,6 +46,18 @@ def derive_edge_params(meta, vertical: bool):
     return _derive_edge_params(meta, vertical)[0]
 
 
+def edge_params(meta, vertical: bool):
+    """derive_edge_params with the Q side's tc offset ("tco") and chroma QP
+    offsets ("cqo": meta's cqo0 and cqo1 grids), the inputs of the chroma
+    tc; port of tpu_decode._edge_params_jnp."""
+    q = (slice(None), slice(2, None, 2)) if vertical else \
+        (slice(2, None, 2), slice(None))
+    out, tco = _derive_edge_params(meta, vertical)
+    out["tco"] = tco
+    out["cqo"] = [meta["cqo0"][q], meta["cqo1"][q]]
+    return out
+
+
 def _derive_edge_params(meta, vertical: bool):
     """derive_edge_params and the Q side's tc offset it used."""
     if vertical:
@@ -116,6 +128,16 @@ def _derive_edge_params(meta, vertical: bool):
             "qp_l": qp_l.to(torch.int32),
             "no_p": meta["unfilt"][p].to(torch.int32),
             "no_q": meta["unfilt"][q].to(torch.int32)}, toff
+
+
+def chroma_qp_map(qpi, is420):
+    """QpC of the chroma deblocking from qPi (spec Table 8-10 for 4:2:0,
+    else Min(qPi, 51), here clamped to [0, 51])."""
+    if is420:
+        tab = torch.as_tensor(CHROMA_QP_TAB, device=qpi.device)
+        return torch.where(qpi < 30, qpi, torch.where(
+            qpi > 43, qpi - 6, tab[(qpi - 30).clamp(0, 13).long()]))
+    return qpi.clamp(0, 51)
 
 
 def pad_edge0(a, E):

@@ -13,21 +13,32 @@ plane pass of ``ops.deblock`` (pad, pass, unpad), then the horizontal one
 per-orientation wrappers keep the TPU kernels' padded layouts and reach
 the same two kernels with the other orientation switched off.  Bound by
 device memory: one read and one write of each sample, plus the parameters.
+
+``deblock_params`` derives those parameters for a whole picture in one
+launch of ``tde_deblock_params`` from the packed per-4x4 grids, the PU
+gather's cell grids, the per-CTB slice and tile grids and the slice
+records, into one int32 arena that ``deblock_luma`` and ``deblock_chroma``
+read as strided views.  Its plain version, ``deblock_params_plain``, is
+the PyTorch composition the picture program ran before (the port of the
+JAX program's ``_edge_params_jnp``, its slice and tile gate and its chroma
+tc).
 """
 from __future__ import annotations
 
 import ctypes as ct
+import threading
 
 import torch
 
 from . import _build
 from ._tensors import check, on_cuda, stream_of
-from .deblock import (_chroma_pass, _luma_pass, chroma_horizontal,
-                      chroma_vertical, luma_horizontal, luma_vertical,
-                      pad_edge0)
+from .deblock import (TC_TABLE, _chroma_pass, _luma_pass, chroma_horizontal,
+                      chroma_qp_map, chroma_vertical, edge_params,
+                      luma_horizontal, luma_vertical, pad_edge0)
 
 luma_launches = 0    # B8 launches since the last reset (read by chip_smoke)
 chroma_launches = 0  # B9 launches since the last reset
+param_launches = 0   # tde_deblock_params launches since the last reset
 # (rows of a tile: 16 or 32, threads of a CTA: 64, 128 or 256) per kernel,
 # from the sweep of scripts/torch_section.py --sweep deblock (PERF.md)
 TILE = {"tde_deblock_luma": (32, 128), "tde_deblock_chroma": (16, 256)}
@@ -61,6 +72,20 @@ def _edges(prms, n, x0, per_seg, vertical):
         e.nseg = prms[0].shape[sa]
         for i, t in enumerate(prms):
             e.prm[i] = _Prm(t.data_ptr(), t.stride(sa), t.stride(ea))
+    return e
+
+
+def _chroma_edges(prm, most, per_seg, vertical):
+    """_edges of B9: (tc [2, ., .], no_p, no_q), the two channels' tc read
+    in place (no channel views); at most `most` edges."""
+    tc, no_p, no_q = prm
+    sa, ea = (0, 1) if vertical else (1, 0)
+    e = _edges((no_p, no_p, no_p, no_q),
+               max(0, min(no_p.shape[ea], most)), 8, per_seg, vertical)
+    if e.n > 0:
+        for c in range(2):
+            e.prm[c] = _Prm(tc.data_ptr() + 4 * c * tc.stride(0),
+                            tc.stride(sa + 1), tc.stride(ea + 1))
     return e
 
 
@@ -177,20 +202,250 @@ def deblock_chroma(cb, cr, prm_v, prm_h, bit_depth: int = 8, sub_x: int = 2,
             tc_h.shape[0] != 2 or sub_x not in (1, 2) or sub_y not in (1, 2):
         raise ValueError("deblock_chroma: tc must be [2, ., .] and sub_x, "
                          "sub_y 1 or 2")
-    pv = (tc_v[0], tc_v[1], *prm_v[1:])
-    ph = (tc_h[0], tc_h[1], *prm_h[1:])
-    _check_planes("deblock_chroma", [cb, cr], [pv, ph])
+    _check_planes("deblock_chroma", [cb, cr], [prm_v[1:], prm_h[1:]])
+    if tc_v.shape[1:] != prm_v[1].shape or \
+            tc_h.shape[1:] != prm_h[1].shape or \
+            tc_v.dtype != torch.int32 or tc_h.dtype != torch.int32 or \
+            tc_v.device != cb.device or tc_h.device != cb.device:
+        raise ValueError("deblock_chroma: tc must be int32 [2, ...] of the "
+                         f"shape of no_p and no_q on {cb.device}")
     Hc, Wc = cb.shape
     out = torch.empty((2, Hc, Wc), dtype=torch.int32, device=cb.device)
     if out.numel() == 0:
         return out
-    v = _edges(pv, max(0, min(pv[0].shape[1], (Wc + 7) // 8 - 1)), 8,
-               4 // sub_y, True)
-    h = _edges(ph, max(0, min(ph[0].shape[0], (Hc + 7) // 8 - 1)), 8,
-               4 // sub_x, False)
+    v = _chroma_edges(prm_v, (Wc + 7) // 8 - 1, 4 // sub_y, True)
+    h = _chroma_edges(prm_h, (Hc + 7) // 8 - 1, 4 // sub_x, False)
     _launch("tde_deblock_chroma", [cb, cr], out, v, h, bit_depth)
     chroma_launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the edge parameters of a picture (tde_deblock_params)
+# ---------------------------------------------------------------------------
+
+GRID_KEYS = ("cu4", "nzc4", "dbf4", "qp4")
+CELL_KEYS = ("pf", "mv0x", "mv0y", "mv1x", "mv1y", "poc0", "poc1")
+
+
+class _ParamArgs(ct.Structure):    # csrc/deblock.cu ParamArgs
+    _fields_ = [("cu4", ct.c_void_p), ("nzc4", ct.c_void_p),
+                ("dbf4", ct.c_void_p), ("qp4", ct.c_void_p),
+                ("unfilt", ct.c_void_p), ("pf", ct.c_void_p),
+                ("mv", ct.c_void_p * 4), ("poc", ct.c_void_p * 2),
+                ("allow_v", ct.c_void_p), ("allow_h", ct.c_void_p),
+                ("slice_idx", ct.c_void_p), ("slice_addr", ct.c_void_p),
+                ("tile_id", ct.c_void_p), ("recs", ct.c_void_p),
+                ("rec_pitch", ct.c_longlong), ("ctb_w", ct.c_int),
+                ("cs4", ct.c_int), ("n_slices", ct.c_int),
+                ("across_tiles", ct.c_int), ("h4", ct.c_int),
+                ("w4", ct.c_int), ("bd", ct.c_int), ("bdc", ct.c_int),
+                ("sub_x", ct.c_int), ("sub_y", ct.c_int),
+                ("is420", ct.c_int), ("lv", ct.c_void_p),
+                ("lh", ct.c_void_p), ("cv", ct.c_void_p),
+                ("ch", ct.c_void_p), ("ev", ct.c_int), ("eh", ct.c_int),
+                ("ecv", ct.c_int), ("ech", ct.c_int)]
+
+
+def _param_shapes(h4, w4, st):
+    """Edges of the parameter arrays: luma vertical / horizontal (edge 0
+    dropped), chroma vertical / horizontal (0 for a mono picture)."""
+    ev, eh = max(0, (w4 - 1) // 2), max(0, (h4 - 1) // 2)
+    if st["mono"]:
+        return ev, eh, 0, 0
+    return ev, eh, ev // st["sub_x"], eh // st["sub_y"]
+
+
+def _arena_views(arena, h4, w4, st):
+    """The parameter dict of deblock_params over an int32 arena: luma
+    [5, h4, ev] and [5, eh, w4], chroma tc [2, h4, ecv] and [2, ech, w4];
+    the chroma no_p / no_q are views of the luma ones (chroma edge k on
+    luma edge k * sub + sub - 1)."""
+    ev, eh, ecv, ech = _param_shapes(h4, w4, st)
+    sizes = (5 * h4 * ev, 5 * eh * w4, 2 * h4 * ecv, 2 * ech * w4)
+    lv, lh, cv, ch = arena[:sum(sizes)].split(sizes)
+    lv, lh = lv.view(5, h4, ev), lh.view(5, eh, w4)
+    prm = {"v": list(lv.unbind(0)), "h": list(lh.unbind(0))}
+    if not st["mono"]:
+        sx, sy = st["sub_x"], st["sub_y"]
+        prm["cv"] = (cv.view(2, h4, ecv), lv[3][:, sx - 1::sx],
+                     lv[4][:, sx - 1::sx])
+        prm["ch"] = (ch.view(2, ech, w4), lh[3][sy - 1::sy],
+                     lh[4][sy - 1::sy])
+    return prm
+
+
+def deblock_params_plain(grids, recs, slice_idx, slice_addr, tile_id, st,
+                         allow=None):
+    """Plain version of deblock_params: the composition the picture
+    program ran before it, on the unpacked grids (the per-4x4 slice
+    fields by indexing the per-CTB grids, the slice and tile gate by
+    rolled neighbours, ops.deblock's derivation once per orientation, then
+    the chroma tc)."""
+    sub_x, sub_y = st["sub_x"], st["sub_y"]
+    h4, w4 = grids["qp4"].shape
+    dev = grids["qp4"].device
+    cs4 = st["ctb_size"] // 4
+    cy = (torch.arange(h4, device=dev) // cs4)[:, None]
+    cx = (torch.arange(w4, device=dev) // cs4)[None, :]
+    sidx4 = slice_idx[cy, cx].clamp(0, st["n_slices"] - 1).long()
+    disabled4 = recs[sidx4, 1] != 0
+    sa4 = slice_addr[cy, cx]
+    ti4 = tile_id[cy, cx]
+    across4 = recs[sidx4, 9] != 0
+
+    def gate(axis):
+        slice_ok = (torch.roll(sa4, 1, dims=axis) == sa4) | across4
+        tile_ok = st["across_tiles"] | (torch.roll(ti4, 1, dims=axis) == ti4)
+        return (slice_ok & tile_ok & ~disabled4).to(torch.int32)
+
+    allow_v, allow_h = gate(1), gate(0)
+    if allow is not None:
+        allow_v, allow_h = allow_v * allow[0], allow_h * allow[1]
+    dbf = grids["dbf4"]
+
+    def cells(k):
+        return grids[k].reshape(h4, w4)
+
+    meta = {"intra": grids["cu4"] & 1, "nzc": grids["nzc4"] & 1,
+            "tu_edge_v": ((dbf & 1) != 0).to(torch.int32),
+            "tu_edge_h": ((dbf & 2) != 0).to(torch.int32),
+            "pu_edge_v": ((dbf & 4) != 0).to(torch.int32),
+            "pu_edge_h": ((dbf & 8) != 0).to(torch.int32),
+            "qp": grids["qp4"], "pf": cells("pf"),
+            "mv": [[cells(f"mv{l}x"), cells(f"mv{l}y")] for l in (0, 1)],
+            "rp": [cells(f"poc{l}") for l in (0, 1)],
+            "unfilt": grids["unfilt"].to(torch.int32),
+            "bit_depth": st["bd"], "beta_off": recs[sidx4, 2],
+            "tc_off": recs[sidx4, 3], "cqo0": recs[sidx4, 10],
+            "cqo1": recs[sidx4, 11], "allow_v": allow_v, "allow_h": allow_h}
+    keys = ("bs", "beta", "tc", "no_p", "no_q")
+    pv = edge_params(meta, vertical=True)    # [h4, ev]
+    ph = edge_params(meta, vertical=False)   # [eh, w4]
+    prm = {"v": [pv[k] for k in keys], "h": [ph[k] for k in keys]}
+    if st["mono"]:
+        return prm
+    is420 = sub_x == 2 and sub_y == 2
+    tc_table = torch.as_tensor(TC_TABLE, device=dev)
+
+    def chroma(p, s):
+        """(tc [2, ...], no_p, no_q) of the chroma edges, each on luma
+        edge column (row) s of p."""
+        qpc = chroma_qp_map(p["qp_l"][s][None] +
+                            torch.stack([c[s] for c in p["cqo"]]), is420)
+        tc = tc_table[(qpc + 2 + p["tco"][s][None]).clamp(0, 53).long()] \
+            << (st["bdc"] - 8)
+        return (torch.where(p["bs"][s][None] == 2, tc, 0), p["no_p"][s],
+                p["no_q"][s])
+
+    # chroma edge k lies on luma edge k * sub (parameter column
+    # k * sub - 1 with edge 0 dropped)
+    prm["cv"] = chroma(pv, (slice(None), slice(sub_x - 1, None, sub_x)))
+    prm["ch"] = chroma(ph, (slice(sub_y - 1, None, sub_y), slice(None)))
+    return prm
+
+
+# (thread, device, stream) -> (shape key, arena, parameter dict): one arena
+# per launching thread and stream, so that only stream order separates a
+# picture's B8 and B9 reads from the next picture's write
+_arenas = {}
+
+
+def _check_param_inputs(grids, recs, ctb, allow, st, h4, w4):
+    """Shapes, dtypes, devices and contiguity of deblock_params' inputs
+    (the kernel reads each grid with its row pitch, so all are dense)."""
+    dev = grids["qp4"].device
+    cells = [grids[k] for k in GRID_KEYS + CELL_KEYS] + list(allow or ())
+    check("deblock_params", dev, torch.int32, *cells, *ctb, recs)
+    check("deblock_params", dev, torch.bool, grids["unfilt"])
+    if grids["qp4"].dim() != 2 or any(
+            t.numel() != h4 * w4 for t in cells + [grids["unfilt"]]):
+        raise ValueError("deblock_params: every per-4x4 grid must hold "
+                         f"{h4} x {w4} cells")
+    cs4 = st["ctb_size"] // 4
+    if cs4 < 1 or ctb[0].dim() != 2 or \
+            any(t.shape != ctb[0].shape for t in ctb) or \
+            ctb[0].shape[0] < -(-h4 // cs4) or ctb[0].shape[1] < -(-w4 // cs4):
+        raise ValueError("deblock_params: the per-CTB grids must be of one "
+                         "shape and cover the per-4x4 grids")
+    if recs.dim() != 2 or recs.shape[1] < 12 or \
+            not 1 <= st["n_slices"] <= recs.shape[0]:
+        raise ValueError("deblock_params: slice records must be "
+                         "[>= n_slices, >= 12] with n_slices >= 1")
+    if not st["mono"] and (st["sub_x"] not in (1, 2) or
+                           st["sub_y"] not in (1, 2)):
+        raise ValueError("deblock_params: sub_x, sub_y must be 1 or 2")
+
+
+def deblock_params(grids, recs, slice_idx, slice_addr, tile_id, st,
+                   allow=None):
+    """Every deblocking parameter of a picture in one launch.
+
+    grids: per-4x4 int32 grids [h4, w4] cu4 (bit 0 intra), nzc4 (bit 0),
+    dbf4 (bits 0-3: TU edge V, H, PU edge V, H), qp4 and the bool unfilt
+    (samples the loop filters leave), and the PU gather's int32 cell
+    grids pf, mv0x, mv0y, mv1x, mv1y, poc0, poc1 (h4 * w4 cells, any
+    shape); recs: int32 slice records [>= n_slices, >= 12]; slice_idx,
+    slice_addr, tile_id: int32 per-CTB grids; st: sub_x, sub_y, bd, bdc,
+    mono, ctb_size, n_slices, across_tiles; allow: optional int32
+    (vertical, horizontal) per-4x4 masks.  Every tensor dense.
+
+    Returns {"v": [bs, beta, tc, no_p, no_q] each [h4, ev], "h": the same
+    five each [eh, w4]} (edge j at x or y = 8(j + 1)), and unless mono
+    "cv": (tc [2, h4, ecv], no_p, no_q) and "ch": (tc [2, ech, w4], no_p,
+    no_q), chroma edge k at 8(k + 1) chroma samples: the layouts
+    deblock_luma and deblock_chroma take.  On the card they are views of
+    one int32 arena kept for the next call of the same shape on the same
+    thread and stream, which overwrites it: stream order puts that call's
+    launch after this picture's B8 and B9, and no other thread or stream
+    writes it.  A CPU tensor runs the plain version."""
+    global param_launches
+    if not on_cuda("deblock_params", grids["qp4"]):
+        return deblock_params_plain(grids, recs, slice_idx, slice_addr,
+                                    tile_id, st, allow)
+    h4, w4 = grids["qp4"].shape
+    ctb = (slice_idx, slice_addr, tile_id)
+    _check_param_inputs(grids, recs, ctb, allow, st, h4, w4)
+    dev = grids["qp4"].device
+    stream = stream_of(grids["qp4"])
+    ev, eh, ecv, ech = _param_shapes(h4, w4, st)
+    n = 5 * (h4 * ev + eh * w4) + 2 * (h4 * ecv + ech * w4)
+    shape = (h4, w4, ecv, ech, st["sub_x"], st["sub_y"], st["mono"])
+    key = (threading.get_ident(), dev, stream)
+    kept = _arenas.get(key)
+    if kept is None or kept[0] != shape:
+        arena = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
+        kept = _arenas[key] = (shape, arena, _arena_views(arena, h4, w4, st))
+    _, arena, prm = kept
+    if h4 * ev + eh * w4 == 0:
+        return prm
+    a = _ParamArgs(
+        cu4=grids["cu4"].data_ptr(), nzc4=grids["nzc4"].data_ptr(),
+        dbf4=grids["dbf4"].data_ptr(), qp4=grids["qp4"].data_ptr(),
+        unfilt=grids["unfilt"].data_ptr(), pf=grids["pf"].data_ptr(),
+        slice_idx=slice_idx.data_ptr(), slice_addr=slice_addr.data_ptr(),
+        tile_id=tile_id.data_ptr(), recs=recs.data_ptr(),
+        rec_pitch=recs.shape[1], ctb_w=slice_idx.shape[1],
+        cs4=st["ctb_size"] // 4, n_slices=st["n_slices"],
+        across_tiles=int(bool(st["across_tiles"])), h4=h4, w4=w4,
+        bd=st["bd"], bdc=st["bdc"], sub_x=st["sub_x"], sub_y=st["sub_y"],
+        is420=int(st["sub_x"] == 2 and st["sub_y"] == 2), ev=ev, eh=eh,
+        ecv=ecv, ech=ech)
+    for i, k in enumerate(CELL_KEYS[1:5]):
+        a.mv[i] = grids[k].data_ptr()
+    a.poc[0], a.poc[1] = grids["poc0"].data_ptr(), grids["poc1"].data_ptr()
+    if allow is not None:
+        a.allow_v, a.allow_h = allow[0].data_ptr(), allow[1].data_ptr()
+    base = arena.data_ptr()
+    a.lv = base
+    a.lh = base + 4 * 5 * h4 * ev
+    if not st["mono"]:
+        a.cv = a.lh + 4 * 5 * eh * w4
+        a.ch = a.cv + 4 * 2 * h4 * ecv
+    rc = _build.lib().tde_deblock_params(ct.addressof(a), stream)
+    _build.check_launch("tde_deblock_params", rc)
+    param_launches += 1
+    return prm
 
 
 # ---------------------------------------------------------------------------

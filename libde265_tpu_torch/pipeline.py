@@ -520,28 +520,21 @@ def _paint_motion_grids(prog: FrameProgramData, device):
 
 
 def _deblock(prog: FrameProgramData, planes):
-    """Deblocking from the program's per-4x4 metadata: B8 for luma, B9 for
-    both chroma planes (frame_helpers.deblock_planes)."""
+    """Deblocking from the program's per-4x4 metadata: the edge parameters
+    in one launch, B8 for luma, B9 for both chroma planes
+    (frame_helpers.deblock_planes)."""
     recs = prog.slice_records
     # every CTB in a slice with deblocking disabled: nothing to filter
     if np.all(recs[np.clip(prog.slice_idx, 0, len(recs) - 1), 1] != 0):
         return
     dev = planes[0].device
     pf, mv, rp = _paint_motion_grids(prog, dev)
-    flags = prog.deblock_flags
-    meta = {
-        "intra": _t(prog.cu_info & 1, dev),
-        "nzc": _t(prog.nonzero_coeff & 1, dev),
-        "tu_edge_v": _t((flags & 1) != 0, dev),
-        "tu_edge_h": _t((flags & 2) != 0, dev),
-        "pu_edge_v": _t((flags & 4) != 0, dev),
-        "pu_edge_h": _t((flags & 8) != 0, dev),
-        "qp": _t(prog.qp_y, dev),
-        "pf": pf,
-        "mv": mv,
-        "rp": rp,
-        "unfilt": _t(_skip_filter_map4(prog), dev),
-    }
+    grids = {"cu4": _t(prog.cu_info, dev), "nzc4": _t(prog.nonzero_coeff, dev),
+             "dbf4": _t(prog.deblock_flags, dev), "qp4": _t(prog.qp_y, dev),
+             "unfilt": _t(_skip_filter_map4(prog), dev, torch.bool), "pf": pf,
+             "mv0x": mv[0][0], "mv0y": mv[0][1], "mv1x": mv[1][0],
+             "mv1y": mv[1][1], "poc0": rp[0].to(torch.int32),
+             "poc1": rp[1].to(torch.int32)}
     has_chroma = prog.chroma_width > 0
     sub_x, sub_y = _subsampling(prog)
     st = {"sub_x": sub_x, "sub_y": sub_y, "bd": prog.bit_depth[0],
@@ -550,7 +543,7 @@ def _deblock(prog: FrameProgramData, planes):
           "across_tiles": bool(prog.across_tiles)}
     n = 3 if has_chroma else 1
     planes[:n] = deblock_planes(
-        [p.contiguous() for p in planes[:n]], meta, _t(recs, dev),
+        [p.contiguous() for p in planes[:n]], grids, _t(recs, dev),
         _t(prog.slice_idx, dev), _t(prog.slice_addr, dev),
         _t(prog.tile_id, dev), st)
 

@@ -13,7 +13,11 @@ escape corrections, dequant + inverse transform) and its feed upload
 (FusedDecoder._sparse_upload: block compaction into a pinned slot, copies,
 B1; and beside it the whole feed of the picture uploaded instead) run
 alone on the arguments they had (chip_smoke.section_alone: synced ms,
-device ms, device operations by name).  A checkout whose picture program
+device ms, device operations by name), and the deblocking section's host
+time alone (`deblock_host`: perf_counter_ns over batches of calls, no
+profiler and no synchronisation inside a batch: the time the calling
+thread spends to enqueue the section, which is what paces a decode whose
+card is mostly idle).  A checkout whose picture program
 runs the residual section inline (no fused_decode._residual_section) gets
 the same statements run on its modules (`residual_inline`).  Then the host
 time of each step of one B1 wrapper call on the P picture's inputs
@@ -288,6 +292,51 @@ def residual_inline(fdm, feed, sf_tables, st):
     return bin_res
 
 
+def deblock_host(progs, idx, batches=7, n=100):
+    """Host us per call of fused_decode._deblock_section on picture idx's
+    arguments (the pictures before it decoded first): the mean of each
+    batch of n calls (perf_counter_ns around the batch, synchronised
+    before and after it, not inside), median and least over the batches;
+    and the synced us of one call, median over the batches' first calls."""
+    import time
+    import statistics
+    import torch
+    import libde265_tpu_torch as lt
+    fdm = lt.fused_decode
+    fd = lt.FusedDecoder()
+    fd.plan_stream(progs)
+    for p in progs[:idx]:
+        fd.decode(p)
+    section, seen = fdm._deblock_section, []
+
+    def record(*a, **k):
+        seen.append((a, k))
+        return section(*a, **k)
+
+    fdm._deblock_section = record
+    try:
+        fd.decode(progs[idx])
+    finally:
+        fdm._deblock_section = section
+    a, k = seen[0]
+    for _ in range(10):
+        section(*a, **k)
+    means, synced = [], []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        section(*a, **k)
+        torch.cuda.synchronize()
+        synced.append((time.perf_counter_ns() - t0) / 1000)
+        t0 = time.perf_counter_ns()
+        for _ in range(n):
+            section(*a, **k)
+        means.append((time.perf_counter_ns() - t0) / n / 1000)
+        torch.cuda.synchronize()
+    return {"host_us": statistics.median(means), "host_us_min": min(means),
+            "host_us_batches": means, "synced_us": statistics.median(synced)}
+
+
 def sections(progs, idx):
     """(name, (synced ms, device ms, device operations by name)) of the
     deblocking, the residual and the upload section of picture idx, and of
@@ -347,6 +396,10 @@ def main():
                               "ops": sorted(([v, k[:100]] for k, v in
                                              ops.items()), reverse=True),
                               "card": smi}), flush=True)
+        print(json.dumps({"root": str(root), "section": "deblock_host",
+                          "picture": f"{what} {idx}",
+                          **deblock_host(progs, idx), "card": smi}),
+              flush=True)
     caps = _p_picture_calls(progs, first_p)
     launch_steps(caps, root, smi)
     if a.sweep:

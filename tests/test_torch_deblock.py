@@ -3,8 +3,11 @@ passes and its Pallas kernels in interpret mode: the per-orientation
 passes at the shapes of tests/test_deblock_pallas.py, and deblock_luma /
 deblock_chroma (every vertical, then every horizontal edge of a picture's
 planes) against the JAX passes composed as the picture program composes
-them.  Tolerance 0 (integer math).  On a CUDA card each kernel is held
-against its plain version."""
+them.  The edge parameters of a picture (deblock_params) on the packed
+per-4x4 grids against the JAX program's _edge_params_jnp, run by its
+deblocking section on the same feed, and the port's deblocking section
+against that section's planes.  Tolerance 0 (integer math).  On a CUDA
+card each kernel is held against its plain version."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -383,3 +386,255 @@ def test_deblock_rejects_unaligned_planes(cuda):  # noqa: F811
     with pytest.raises(ValueError, match="aligned"):
         deblock_cuda.deblock_luma(big[:, 1:129], [t32(a, cuda) for a in pv],
                                   [t32(a, cuda) for a in ph])
+
+
+# ---------------------------------------------------------------------------
+# the edge parameters of a picture (deblock_params, tde_deblock_params) and
+# frame_helpers.deblock_planes on the packed grids
+# ---------------------------------------------------------------------------
+
+def _packed_case(H, W, sub_x, sub_y, bd, mono, ctb, n_slices, tiles,
+                 across_tiles, allow, seed):
+    """Seeded inputs of deblock_params for an H x W picture: the packed
+    per-4x4 grids (cu4 with bits above bit 0 set too, dbf4 all four bits),
+    cell grids whose MVs and POCs are set also where pf leaves the list
+    unused, raster-order slices (slice 1 filters not across slices, slice
+    2 has deblocking disabled, the rest random offsets), a tiles[0] x
+    tiles[1] tile grid and optional allow masks."""
+    rng = np.random.default_rng(seed)
+    h4, w4 = -(-H // 4), -(-W // 4)
+
+    def g(hi):
+        return rng.integers(0, hi, (h4, w4)).astype(np.int32)
+
+    grids = {"cu4": g(8) * (rng.random((h4, w4)) < 0.4), "nzc4": g(4),
+             "dbf4": g(16), "qp4": g(52),
+             "unfilt": rng.random((h4, w4)) < 0.1,
+             "pf": g(4).reshape(-1)}
+    for l in (0, 1):
+        for c in "xy":
+            grids[f"mv{l}{c}"] = rng.integers(-9, 10, h4 * w4)
+        grids[f"poc{l}"] = rng.integers(0, 3, h4 * w4)
+    ch, cw = -(-H // ctb), -(-W // ctb)
+    n_slices = min(n_slices, ch * cw)
+    starts = np.concatenate([[0], np.sort(rng.choice(
+        np.arange(1, ch * cw), n_slices - 1, replace=False))])
+    sl = np.searchsorted(starts, np.arange(ch * cw), side="right") - 1
+    ty = np.arange(ch) * tiles[0] // ch
+    tx = np.arange(cw) * tiles[1] // cw
+    recs = np.zeros((n_slices, 208), np.int32)
+    recs[:, 2:4] = rng.integers(-6, 7, (n_slices, 2)) * 2
+    recs[:, 9] = 1
+    recs[:, 10:12] = rng.integers(-12, 13, (n_slices, 2))
+    recs[1:2, 9] = 0
+    recs[2:3, 1] = 1
+    st = {"H": H, "W": W, "sub_x": sub_x, "sub_y": sub_y, "bd": bd,
+          "bdc": bd, "mono": mono, "ctb_size": ctb, "n_slices": n_slices,
+          "across_tiles": across_tiles}
+    masks = None
+    if allow:
+        masks = [(rng.random((h4, w4)) < 0.9).astype(np.int32)
+                 for _ in range(2)]
+    return (grids, recs, sl.reshape(ch, cw), starts[sl].reshape(ch, cw),
+            ty[:, None] * tiles[1] + tx[None, :], st, masks)
+
+
+# (H, W, sub_x, sub_y, bit depth, mono, CTB, slices, tiles, across tiles,
+# allow masks)
+PARAM_CASES = {
+    "1080p-420-bd8": (1088, 1920, 2, 2, 8, False, 64, 3, (1, 1), True,
+                      False),
+    "1080p-420-bd10-tiles": (1088, 1920, 2, 2, 10, False, 64, 4, (2, 3),
+                             False, False),
+    "104x72-420-bd8": (72, 104, 2, 2, 8, False, 16, 3, (2, 2), False, True),
+    "104x72-420-bd10": (72, 104, 2, 2, 10, False, 16, 4, (1, 2), True,
+                        False),
+    "104x72-422-bd8": (72, 104, 2, 1, 8, False, 16, 3, (2, 2), False, True),
+    "104x72-444-bd10": (72, 104, 1, 1, 10, False, 32, 3, (2, 1), False,
+                        False),
+    "104x72-mono-bd8": (72, 104, 2, 2, 8, True, 16, 3, (2, 2), False, True),
+    "128x72-422-bd10": (72, 128, 2, 1, 10, False, 16, 3, (1, 2), False,
+                        True),
+    "104x72-420-bd8-one-slice": (72, 104, 2, 2, 8, False, 64, 1, (1, 1),
+                                 True, False),
+}
+
+
+def _torch_inputs(case, dev="cpu"):
+    grids, recs, si, sa, ti, st, masks = case
+    return ({k: t32(v, dev) for k, v in grids.items()}, t32(recs, dev),
+            t32(si, dev), t32(sa, dev), t32(ti, dev), st,
+            None if masks is None else tuple(t32(m, dev) for m in masks))
+
+
+def _flat_params(prm):
+    return [t for k in ("v", "h", "cv", "ch") if k in prm for t in prm[k]]
+
+
+def _jax_section(case, planes):
+    """The JAX program's deblocking section on the same packed feed:
+    its planes, and the parameters of each _edge_params_jnp call."""
+    from libde265_tpu import fused_decode as jfd
+    grids, recs, si, sa, ti, st, masks = case
+    h4, w4 = grids["qp4"].shape
+    feed = {k: _j(grids[k]) for k in ("cu4", "nzc4", "dbf4", "qp4")}
+    feed.update(slice_idx=_j(si), slice_addr=_j(sa), tile_id=_j(ti))
+    if masks is not None:
+        feed.update(allow_xv=_j(masks[0]), allow_xh=_j(masks[1]))
+    cell = {k: _j(grids[k]) for k in deblock_cuda.CELL_KEYS}
+    seen = []
+    edge_params = jfd._edge_params_jnp
+
+    def record(meta, vertical):
+        seen.append(edge_params(meta, vertical))
+        return seen[-1]
+
+    jfd._edge_params_jnp = record
+    try:
+        out = jfd._deblock_section([_j(p) for p in planes], feed, _j(recs),
+                                   cell, jnp.asarray(grids["unfilt"]),
+                                   dict(st, pallas_deblock=False))
+    finally:
+        jfd._edge_params_jnp = edge_params
+    return [np.asarray(p) for p in out], seen
+
+
+def _jax_chroma_tc(p, sub, vertical, st):
+    """The JAX program's chroma tc of one orientation from its
+    _edge_params_jnp output, edge 0 dropped as the port keeps it."""
+    from libde265_tpu import tpu_decode as jtd
+    from libde265_tpu.ops import deblock as jdb
+    s = (slice(None), slice(sub - 1, None, sub)) if vertical else \
+        (slice(sub - 1, None, sub), slice(None))
+    qpi = p["qp_l"][s][None] + jnp.stack([c[s] for c in p["cqo"]])
+    qpc = jtd._chroma_qp_map(qpi, st["sub_x"] == 2 and st["sub_y"] == 2)
+    tc = jnp.asarray(jdb.TC_TABLE)[jnp.clip(qpc + 2 + p["tco"][s][None], 0,
+                                            53)] << (st["bdc"] - 8)
+    return np.asarray(jnp.where(p["bs"][s][None] == 2, tc, 0)), s
+
+
+@pytest.mark.parametrize("name", list(PARAM_CASES))
+def test_deblock_params_match_jax(name):
+    """deblock_params on the packed grids (the plain version on the CPU)
+    equals the JAX program's _edge_params_jnp, run by its deblocking
+    section on the same feed, parameter for parameter, and its chroma tc;
+    the port's deblocking section (fused_decode._deblock_section through
+    frame_helpers.deblock_planes) gives the JAX section's planes: luma
+    always, chroma where the chroma plane is a multiple of 8 in both
+    axes (the port filters the last, ragged chroma edge; ROADMAP C1)."""
+    from libde265_tpu_torch import fused_decode as tfd
+    H, W, sub_x, sub_y, bd, mono, *rest = PARAM_CASES[name]
+    case = _packed_case(H, W, sub_x, sub_y, bd, mono, *rest,
+                        seed=len(name) * 97 + bd)
+    rng = np.random.default_rng(5)
+    Hc, Wc = H // sub_y, W // sub_x
+    planes = [_smooth(rng, (H, W), bd)] + \
+        ([] if mono else list(_smooth(rng, (2, Hc, Wc), bd)))
+    want_planes, (pv, ph) = _jax_section(case, planes)
+
+    grids, recs, si, sa, ti, st, allow = _torch_inputs(case)
+    prm = deblock_cuda.deblock_params(grids, recs, si, sa, ti, st, allow)
+    for d, p in (("v", pv), ("h", ph)):
+        for k, got in zip(("bs", "beta", "tc", "no_p", "no_q"), prm[d]):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(p[k]),
+                                          err_msg=f"{d} {k}")
+    assert (prm["v"][0] > 0).any() and (prm["v"][0] == 0).any()
+    if not mono:
+        for d, p, sub, vertical in (("cv", pv, sub_x, True),
+                                    ("ch", ph, sub_y, False)):
+            tc, s = _jax_chroma_tc(p, sub, vertical, st)
+            np.testing.assert_array_equal(prm[d][0].numpy(), tc)
+            np.testing.assert_array_equal(prm[d][1].numpy(),
+                                          np.asarray(p["no_p"][s]))
+            np.testing.assert_array_equal(prm[d][2].numpy(),
+                                          np.asarray(p["no_q"][s]))
+
+    feed = {k: grids[k] for k in deblock_cuda.GRID_KEYS}
+    feed.update(slice_idx=si, slice_addr=sa, tile_id=ti)
+    if allow is not None:
+        feed.update(allow_xv=allow[0], allow_xh=allow[1])
+    cell = {k: grids[k] for k in deblock_cuda.CELL_KEYS}
+    got = tfd._deblock_section([t32(p) for p in planes], feed, recs, cell,
+                               grids["unfilt"], st)
+    assert len(got) == len(want_planes) == (1 if mono else 3)
+    assert (got[0].numpy() != planes[0]).sum() > H * W // 50
+    np.testing.assert_array_equal(got[0].numpy(), want_planes[0])
+    if not mono and Wc % 8 == 0 and Hc % 8 == 0:
+        for c in (1, 2):
+            np.testing.assert_array_equal(got[c].numpy(), want_planes[c])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(PARAM_CASES))
+def test_deblock_params_kernel_matches_plain(cuda, name):  # noqa: F811
+    """tde_deblock_params: every array of the arena equal to the plain
+    derivation bit for bit, one launch a call; then frame_helpers.
+    deblock_planes on the card equal to its plain version, with one
+    launch each of the parameters, B8 and B9 (none of B9 for mono)."""
+    from libde265_tpu_torch.frame_helpers import deblock_planes
+    H, W, sub_x, sub_y, bd, mono, *rest = PARAM_CASES[name]
+    case = _packed_case(H, W, sub_x, sub_y, bd, mono, *rest,
+                        seed=len(name) * 89 + bd)
+    args = _torch_inputs(case)
+    dargs = _torch_inputs(case, cuda)
+    want = deblock_cuda.deblock_params(*args)
+    n0 = deblock_cuda.param_launches
+    got = deblock_cuda.deblock_params(*dargs)
+    assert deblock_cuda.param_launches == n0 + 1
+    got, want = _flat_params(got), _flat_params(want)
+    assert len(got) == len(want) == (10 if mono else 16)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and torch.equal(a.cpu(), b), i
+
+    rng = np.random.default_rng(3)
+    Hc, Wc = H // sub_y, W // sub_x
+    planes = [_smooth(rng, (H, W), bd)] + \
+        ([] if mono else list(_smooth(rng, (2, Hc, Wc), bd)))
+    want = deblock_planes([t32(p) for p in planes], *args)
+    counts = (deblock_cuda.param_launches, deblock_cuda.luma_launches,
+              deblock_cuda.chroma_launches)
+    for _ in range(2):    # the second call reuses the arena
+        got = deblock_planes([t32(p, cuda) for p in planes], *dargs)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+    assert (deblock_cuda.param_launches, deblock_cuda.luma_launches,
+            deblock_cuda.chroma_launches) == (
+        counts[0] + 2, counts[1] + 2, counts[2] + (0 if mono else 2))
+
+
+@pytest.mark.gpu
+def test_deblock_params_rejects_bad_inputs(cuda):  # noqa: F811
+    """The kernel reads every grid densely with its row pitch: a wrong
+    dtype raises TypeError, a wrong shape or a strided grid ValueError
+    (there is no fallback)."""
+    case = _packed_case(72, 104, 2, 2, 8, False, 16, 3, (2, 2), False, True,
+                        seed=1)
+    grids, recs, si, sa, ti, st, allow = _torch_inputs(case, cuda)
+
+    def call(**kw):
+        g = dict(grids, **kw.pop("grids", {}))
+        a = dict(recs=recs, slice_idx=si, slice_addr=sa, tile_id=ti, st=st,
+                 allow=allow)
+        a.update(kw)
+        return deblock_cuda.deblock_params(g, **a)
+
+    call()
+    with pytest.raises(TypeError):
+        call(grids={"qp4": grids["qp4"].to(torch.int16)})
+    with pytest.raises(TypeError):
+        call(grids={"unfilt": grids["unfilt"].to(torch.int32)})
+    with pytest.raises(TypeError):
+        call(recs=recs.to(torch.int64))
+    with pytest.raises(ValueError):
+        call(grids={"pf": grids["pf"][:-1]})
+    with pytest.raises(ValueError):
+        call(grids={"cu4": grids["cu4"].t().contiguous().t()})
+    with pytest.raises(ValueError):
+        call(slice_idx=si[:1])
+    with pytest.raises(ValueError):
+        call(recs=recs[:, :11].contiguous())
+    with pytest.raises(ValueError):
+        call(st=dict(st, n_slices=recs.shape[0] + 1))
+    with pytest.raises(ValueError):
+        call(allow=(allow[0][:, :-1].contiguous(), allow[1]))
