@@ -18,8 +18,10 @@ it on the profiler's timeline beside the device's kernels, and keeps a
 wall-clock ns (the clock of the profiler's events: ``trace_start_ns`` plus
 an event's range), the id of the enclosing span on the same thread and the
 request id (the id of the outermost span of the thread, normally
-``tde.request``).  The RecordFunction comes from torch's direct binding
-``_RecordFunctionFast`` (as in torch.compile's graphs), not from
+``tde.request``), and the counters noted on it (``span.note(name=value)``,
+for example the parse workers of a request).  The RecordFunction comes
+from torch's direct binding ``_RecordFunctionFast`` (as in
+torch.compile's graphs), not from
 ``torch.profiler.record_function``, whose operator dispatch costs tens of
 us a span in a decode and widens the event by as much on each side.
 
@@ -58,6 +60,7 @@ class Record(NamedTuple):
     id: int
     parent: int | None   # the enclosing span on the same thread
     request: int
+    args: dict | None = None   # counters noted on the span (note())
 
 
 class _Noop:
@@ -72,6 +75,9 @@ class _Noop:
 
     def thread_span(self, name: str):
         return self
+
+    def note(self, **counters):
+        pass
 
 
 NOOP = _Noop()
@@ -89,12 +95,14 @@ _open = _Open()
 
 
 class _Span:
-    __slots__ = ("name", "id", "parent", "request", "start_ns", "_rf")
+    __slots__ = ("name", "id", "parent", "request", "start_ns", "args",
+                 "_rf")
 
     def __init__(self, name: str, request: int | None, profiled: bool):
         self.name = name
         self.id = next(_ids)
         self.request = request
+        self.args = None
         self._rf = _RecordFunction(name) if profiled else None
 
     def __enter__(self):
@@ -117,8 +125,12 @@ class _Span:
         if len(_records) < MAX_RECORDS:
             _records.append(Record(self.name, threading.get_ident(),
                                    self.start_ns, end, self.id, self.parent,
-                                   self.request))
+                                   self.request, self.args))
         return False
+
+    def note(self, **counters):
+        """Keep `counters` (name=value) in this span's Record."""
+        self.args = {**(self.args or {}), **counters}
 
     def thread_span(self, name: str):
         """A span of this span's request on the current thread, in memory
