@@ -16,7 +16,9 @@ Phases (any failure raises and the script exits non-zero):
           encoder, decoded with PipelinedDecoder() (the default device);
        b. a 1920x1088 all-intra GOP (4 frames, intra period 1), decoded
           with PipelinedDecoder(): the intra scan, one persistent kernel
-          launch per picture with intra blocks, no fused-step launch;
+          launch and one launch of its records' kernel (intra_bins) per
+          picture with intra blocks and none for the others, no
+          fused-step launch;
      each run with every picture packed by the native feed packer
      (FeedPacker.pack_native; the packer's counters), then the parse of
      each stream alone (host ms per picture), the native
@@ -33,14 +35,16 @@ Phases (any failure raises and the script exits non-zero):
   4. kernels vs plain: each kernel against its plain PyTorch version on
      the card, on seeded random inputs at the 1080p shapes and on the
      inputs captured from the first I and P picture (the intra kernels on
-     the first I picture's whole scan); exact equality; CUDA-event times of
+     the first I picture's whole scan, the scan's records timed on the I
+     picture's call); exact equality; CUDA-event times of
      both, each kernel's device time (torch.profiler, profiled again while
      it sees no device time, up to five times, else the run fails) and
      bound; B5 timed
      on the I picture's calls as well (bins with no segment), and B1's,
      B4's, B5's, B2's, B8's, B9's and the edge parameters' calls checked
      to run no device work
-     besides their kernel; B4 (every size bin of a picture in one call)
+     besides their kernel (intra_bins: its kernel and one memset); B4
+     (every size bin of a picture in one call)
      also on random bins of the P picture's sizes; B1's library
      yardstick, the one indexing call of its plain version, timed.  B8
      and B9 (both edge orientations of a plane in one launch) are also
@@ -117,9 +121,13 @@ Phases (any failure raises and the script exits non-zero):
           equal to the native plan's word for word.
 
 The kernels line's launches are the sums over the main-path runs of
-phases 3, 6, 7 and 8.  The last three lines of stdout are the kernels JSON
-object (all thirteen rows: B1-B10, the deblocking edge parameters, the
-fused step and the persistent scan),
+phases 3, 6, 7 and 8; intra_bins is checked at one launch a picture with
+intra records (a tile with them, in 7b) and none for the others in each
+of them, and every captured call of it against its plain version (phase
+4, each scan held in phases 4 and 5, phase 7b).  The last three lines of
+stdout are the kernels JSON object (all fourteen rows: B1-B10, the
+deblocking edge parameters, the fused step, the persistent scan and its
+records),
 the card's nvidia-smi line and the result line {"ok": true, "device":
 {...}}.
 Nothing here imports JAX or the JAX package libde265_tpu.
@@ -152,6 +160,7 @@ B10 = "B10 sao_plane_fused"
 PARAMS = "B8+B9 deblock_params (edge parameters)"
 STEP = "B6+B7 intra_step (fused)"
 SCAN = "B6+B7 intra_scan (persistent)"
+BINS = "intra_bins (scan records)"
 
 # family -> (source, TPU kernel it replaces, ops module, launch counter,
 #            integer operations per output element, counted from the source)
@@ -183,6 +192,11 @@ KERNELS = {
     SCAN: ("libde265_tpu_torch/csrc/intra.cu",
            "libde265_tpu/ops/intra_window_pallas.py:133,252",
            "intra_cuda", "scan_launches", 60),
+    # no TPU kernel: the JAX program unpacks and scatters the records with
+    # XLA ops
+    BINS: ("libde265_tpu_torch/csrc/intra_bins.cu",
+           "libde265_tpu/fused_decode.py:268,480 (_unpack_irec, "
+           "_scatter_intra_bins, XLA)", "intra_cuda", "bin_launches", 1),
 }
 # The separate B6 and B7 kernels and the fused step (the scan's body, one
 # launch per step and size bin): the decode runs B6's gather and B7's store
@@ -204,7 +218,7 @@ HELD = {
 ALL = {**KERNELS, **HELD}
 NAMES = list(ALL)
 ROWS = [B1, B2, B3, B4, B5, B6, B7, B8, B9, PARAMS, B10, STEP,
-        SCAN]  # kernels line
+        SCAN, BINS]  # kernels line
 INTRA = (SCAN, STEP, B6, B7)
 
 # wrapper (module, function) -> family
@@ -224,6 +238,7 @@ WRAPPERS = {("expand", "expand_blocks"): B1,
             ("sao_cuda", "sao_plane_fused"): B10,
             ("intra_cuda", "intra_scan"): SCAN,
             ("intra_cuda", "intra_step"): STEP,
+            ("intra_cuda", "intra_bins"): BINS,
             ("intra_window", "border_gather"): B6,
             ("intra_window", "window_scatter"): B7}
 FAMILY = {fn: fam for (_, fn), fam in WRAPPERS.items()}
@@ -784,8 +799,9 @@ def pack_compare(progs):
 
 
 def per_picture(progs):
-    """Synced ms, launch counts, intra flag and upload bytes of each picture
-    (FusedDecoder()), and the bytes of the DPB ring."""
+    """Synced ms, launch counts, intra flag, upload bytes and whether it has
+    intra records, of each picture (FusedDecoder()), and the bytes of the
+    DPB ring."""
     import torch
     import libde265_tpu_torch as lt
     fd = lt.FusedDecoder()
@@ -800,7 +816,8 @@ def per_picture(progs):
         fd.decode(p)
         torch.cuda.synchronize()
         rows.append((1000 * (time.perf_counter() - t0), read_counts(),
-                     len(p.pus) == 0, fd.last_wire_bytes))
+                     len(p.pus) == 0, fd.last_wire_bytes,
+                     len(p.intras) > 0))
     ring = sum(t.numel() * t.element_size() for t in fd._stack)
     return rows, ring
 
@@ -1399,6 +1416,8 @@ def plain_of(name):
         return intra_cuda.intra_step_plain
     if name == "intra_scan":
         return intra_cuda.intra_scan_plain
+    if name == "intra_bins":
+        return intra_cuda.intra_bins_plain
     return sao_plane
 
 
@@ -1471,6 +1490,11 @@ def _work(name, args, kw, out):
         arena = sum(t.numel() for t in out["v"] + out["h"]) + sum(
             out[k][0].numel() for k in ("cv", "ch") if k in out)
         nbytes = _nbytes(args) + _nbytes(kw) + 4 * arena
+        nout = arena
+    elif name == "intra_bins":
+        # the records read (8 words each) and the arena written once
+        arena = sum(t.numel() for t in _tensors(out))
+        nbytes = 32 * args[4] + 4 * arena
         nout = arena
     elif name == "residual_stripes":
         res, nseg, sw = args
@@ -1726,15 +1750,27 @@ def hold_scans(what, progs, err, ncases):
     """Every intra scan of a stream on the card (a FusedDecoder over
     progs, each scan recorded): the kernel, one launch, against its plain
     version and against the planes the decode left, exact; one scan held
-    for each picture with intra blocks, else it fails.  Returns the number
-    of scans held."""
+    for each picture with intra blocks, else it fails; and each picture's
+    intra_bins call (one for each picture with intra blocks) against its
+    plain version.  Returns the number of scans held."""
     import torch
     import libde265_tpu_torch as lt
     from libde265_tpu_torch.ops import intra_cuda
     fd = lt.FusedDecoder(device=torch.device("cuda"))
     fd.plan_stream(progs)
     n = 0
-    for i, cap in enumerate(capture_inputs(fd, progs)):
+    caps = capture_inputs(fd, progs)
+    for i, (cap, p) in enumerate(zip(caps, progs)):
+        if len(cap.get("intra_bins", ())) != (len(p.intras) > 0):
+            raise AssertionError(f"{BINS} ({what} picture {i}): "
+                                 f"{len(cap.get('intra_bins', ()))} calls")
+    e, nb = compare_kernels([(f"{what} picture {i}",
+                              {"intra_bins": cap["intra_bins"]})
+                             for i, cap in enumerate(caps)
+                             if "intra_bins" in cap])
+    err[BINS] = max(err[BINS], e[BINS])
+    ncases[BINS] += nb[BINS]
+    for i, cap in enumerate(caps):
         trace = cap.get("intra_scan")
         if trace is None or not intra_cuda.fill_scan_args(
                 list(trace.initial.values()), *trace.scan)[1]:
@@ -1763,7 +1799,8 @@ def hold_scans(what, progs, err, ncases):
                              f"pictures with intra blocks")
     ncases[SCAN] += n
     log(f"{SCAN}: {n} scans of the {what} stream equal to the plain "
-        f"version and to the decode (tolerance 0)")
+        f"version and to the decode (tolerance 0); {BINS}: {nb[BINS]} calls "
+        f"equal to the plain version")
     return n
 
 
@@ -1888,6 +1925,10 @@ def many_refs_phase(smi):
                                      f"{json.dumps(c)}")
         else:
             ms_f.append(ms)
+            if c[BINS] != (len(p.intras) > 0):
+                raise AssertionError(f"fused picture {i}: {c[BINS]} {BINS} "
+                                     f"launches, {len(p.intras)} intra "
+                                     f"records")
     if fd.pipeline_pictures != len(routed):
         raise AssertionError(f"{fd.pipeline_pictures} routed pictures")
     assert_bit_exact([out], progs[-1:], "many references, last picture")
@@ -2036,6 +2077,10 @@ def gop_parallel_phase(smi):
         if counts[n] < n_p:
             raise AssertionError(f"GOP-parallel: {counts[n]} {n} launches "
                                  f"over {n_p} P pictures")
+    n_rec = sum(len(p.intras) > 0 for p in progs)
+    if counts[BINS] != n_rec:
+        raise AssertionError(f"GOP-parallel: {counts[BINS]} {BINS} launches "
+                             f"over {n_rec} pictures with intra records")
     log(f"GOP-parallel k=4 (main path): {frames} frames bit-exact, "
         f"{len(segs)} segments on entries {list(range(len(segs)))}"
         f"{f' (entry {len(segs)} idle)' if len(segs) < 4 else ''}, "
@@ -2123,8 +2168,9 @@ def sharded_tile_phase(smi):
         counts = read_counts()
         assert_bit_exact(outs, progs, f"tile-sharded ({what})")
         for i, c in enumerate(per):
-            if (c.get(PARAMS), c.get(B8), c.get(B9), c.get(B10)) != \
-                    (8, 8, 8, 24):
+            if (c.get(PARAMS), c.get(B8), c.get(B9), c.get(B10),
+                    c.get(BINS)) != (8, 8, 8, 24,
+                                     8 if len(progs[i].intras) else None):
                 raise AssertionError(f"tile-sharded ({what}) picture {i}: "
                                      f"launches {json.dumps(c)}")
         for n in (B4, SCAN, PARAMS, B8, B9, B10):
@@ -2176,13 +2222,14 @@ def sharded_kernel_check(prog, launches, what, smi):
     calls = {}
     for name, c in cap.items():
         calls[FAMILY[name]] = calls.get(FAMILY[name], 0) + len(c)
-    if calls != launches or set(calls) != {B4, SCAN, PARAMS, B8, B9, B10}:
+    if calls != launches or \
+            set(calls) != {B4, SCAN, BINS, PARAMS, B8, B9, B10}:
         raise AssertionError(f"tile-sharded ({what}) picture 0: calls "
                              f"{json.dumps(calls)}, main-path launches "
                              f"{json.dumps(launches)}")
     shapes = {name: sorted({tuple(a[0].shape) for a, _ in c})
               for name, c in cap.items()
-              if name not in ("densify_bins", "intra_scan",
+              if name not in ("densify_bins", "intra_scan", "intra_bins",
                               "deblock_params")}
     shapes["intra_scan"] = sorted({tuple(p.shape) for a, _ in
                                    cap.get("intra_scan", []) for p in a[0]})
@@ -2190,9 +2237,10 @@ def sharded_kernel_check(prog, launches, what, smi):
                                     cap)])
     del cap
     torch.cuda.synchronize()
-    held = (B4, SCAN, PARAMS, B8, B9, B10)
-    log(f"tile-sharded ({what}) picture 0: B4, the scan, the edge "
-        f"parameters, B8, B9 and B10 equal to their plain versions on its "
+    held = (B4, SCAN, BINS, PARAMS, B8, B9, B10)
+    log(f"tile-sharded ({what}) picture 0: B4, the scan, its records, the "
+        f"edge parameters, B8, B9 and B10 equal to their plain versions on "
+        f"its "
         f"calls (tolerance 0): {json.dumps({n: ncases[n] for n in held})}; "
         f"plane shapes {json.dumps(shapes)}; checked in "
         f"{time.perf_counter() - t0:.1f} s on {smi}")
@@ -2463,10 +2511,12 @@ def device_decoder_phase(smi, pprogs, progs, iprogs, stripe_pprogs,
         feed._plan_intra = plan
     assert_bit_exact(outs, iprogs, "all-intra without the intra plan")
     pk = fd.packer
-    if run_c[0][SCAN] != len(bare) or len(spent) != len(bare) or \
+    if run_c[0][SCAN] != len(bare) or run_c[0][BINS] != len(bare) or \
+            len(spent) != len(bare) or \
             (pk.numpy_packs, pk.native_packs) != (len(bare), 0):
         raise AssertionError(f"all-intra without the intra plan: "
-                             f"{run_c[0][SCAN]} scans, {len(spent)} plans, "
+                             f"{run_c[0][SCAN]} scans, {run_c[0][BINS]} "
+                             f"{BINS}, {len(spent)} plans, "
                              f"{pk.numpy_packs} numpy and "
                              f"{pk.native_packs} native packs")
     native_ms = []
@@ -2555,6 +2605,11 @@ def main():
     log(f"intra scan launches {counts[SCAN]} over {n_pics} pictures ({n_i} "
         f"I, the rest P with or without intra blocks); fused step launches "
         f"{counts[STEP]}")
+    n_rec = sum(len(p.intras) > 0 for p in progs + iprogs)
+    if counts[BINS] != n_rec or counts[SCAN] != n_rec:
+        raise AssertionError(f"{counts[BINS]} {BINS} and {counts[SCAN]} scan "
+                             f"launches over {n_rec} pictures with intra "
+                             f"records")
 
     # the parse alone, against the pipelined decode's ms per picture
     for (counts_, dt), what, d, pp in zip(runs, ("P-GOP", "all-intra"),
@@ -2575,10 +2630,14 @@ def main():
     # per-picture synced times, launches and upload bytes (I/P split)
     for what, pp in (("P-GOP", progs), ("all-intra", iprogs)):
         rows, ring = per_picture(pp)
-        for ms_, c, intra, _ in rows:
-            if c[SCAN] > 1 or (intra and c[SCAN] != 1) or c[STEP]:
+        for ms_, c, intra, _, rec in rows:
+            if c[SCAN] != rec or (intra and not rec) or c[STEP]:
                 raise AssertionError(f"{what}: {c[SCAN]} scan and {c[STEP]} "
                                      f"fused step launches in a picture")
+            if c[BINS] != rec:
+                raise AssertionError(f"{what}: {c[BINS]} {BINS} launches in "
+                                     f"a picture with{'' if rec else 'out'} "
+                                     f"intra records")
             if c[PARAMS] != 1 or c[B8] != 1 or c[B9] != 1:
                 raise AssertionError(f"{what}: {c[PARAMS]} edge-parameter, "
                                      f"{c[B8]} B8 and {c[B9]} B9 launches "
@@ -2643,11 +2702,14 @@ def main():
     # times on the P picture's calls; a family that the P picture did not
     # call is timed on the I picture's calls, else on its random cases
     captured = {**caps[first_i], **caps[first_p]}
+    # the scan's records timed on the I picture's, the most of the two
+    captured["intra_bins"] = caps[first_i]["intra_bins"]
     on_path = {FAMILY[k] for k in captured}
     timed = {**{k: v for k, v in rand.items()
                 if FAMILY[k] not in INTRA and FAMILY[k] not in on_path},
              **captured}
-    pic_of = {FAMILY[k]: ("P" if k in caps[first_p] else
+    pic_of = {FAMILY[k]: ("I" if k == "intra_bins" else
+                          "P" if k in caps[first_p] else
                           "I" if k in caps[first_i] else "random")
               for k in timed}
     ms = time_calls(timed)
@@ -2663,20 +2725,24 @@ def main():
         f"{smi}")
     # B5, B2, B8, B9, B4 and B1 allocate their outputs unfilled and copy
     # nothing, the edge parameters write a kept arena: the kernel must be
-    # the only device work of a call
-    for name, mark in (("expand_blocks", "expand_kernel"),
-                       ("densify_bins", "densify_bins_kernel"),
-                       ("residual_stripes", "residual_kernel"),
-                       ("paint_pu_idx", "paint_kernel"),
-                       ("deblock_luma", "deblock_kernel"),
-                       ("deblock_chroma", "deblock_kernel"),
-                       ("deblock_params", "deblock_params_kernel")):
-        args, kw = caps[first_p][name][0]
+    # the only device work of a call; the scan's records clear their kept
+    # arena first (one memset)
+    for name, marks in (("expand_blocks", ("expand_kernel",)),
+                        ("densify_bins", ("densify_bins_kernel",)),
+                        ("residual_stripes", ("residual_kernel",)),
+                        ("paint_pu_idx", ("paint_kernel",)),
+                        ("deblock_luma", ("deblock_kernel",)),
+                        ("deblock_chroma", ("deblock_kernel",)),
+                        ("deblock_params", ("deblock_params_kernel",)),
+                        ("intra_bins", ("intra_bins_kernel", "Memset"))):
+        args, kw = (caps[first_i] if name == "intra_bins" else
+                    caps[first_p])[name][0]
         seen = device_kernels(lambda: _call(kernel_of(name), name, args, kw))
         if not seen:
             log(f"{name}: the profiler saw no device time; its device "
                 f"work not checked")
-        elif any(mark not in k for k in seen):
+        elif any(not any(m in k for m in marks) for k in seen) or \
+                not any(marks[0] in k for k in seen):
             raise AssertionError(f"{name}: device work besides its kernel: "
                                  f"{json.dumps(seen)}")
         else:

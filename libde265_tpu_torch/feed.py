@@ -201,6 +201,24 @@ def _pack_irec(irec: np.ndarray) -> np.ndarray:
     return p
 
 
+def bin_depths(cidx, lg, step) -> np.ndarray:
+    """Depth (largest step + 1; 0 without a record) of every (plane, lg)
+    bin of intra records given by their planes, sizes and steps (numpy
+    integer arrays): an int64 array [4, 8] by [plane, lg], in one pass."""
+    d = np.zeros(32, np.int64)
+    np.maximum.at(d, (cidx & 3) | ((lg & 7) << 2),
+                  step.astype(np.int64) + 1)
+    return d.reshape(8, 4).T
+
+
+def record_depths(w0: np.ndarray) -> np.ndarray:
+    """bin_depths of wire records from their word 0 alone (_pack_irec):
+    pass only the picture's own records, not the padding of the feed's
+    capacity (which has plane 0, lg 0)."""
+    w = w0.view(np.uint32)      # step's top bit is the sign bit
+    return bin_depths(w >> 14, w >> 16, w >> 19)
+
+
 def _avail_words(av: np.ndarray) -> np.ndarray:
     """Pack a [n, nb] bool availability matrix into [n, AVAIL_WORDS] int32
     (little-endian bit order, bit k of word k>>5 = sample k)."""
@@ -514,6 +532,9 @@ class FeedPacker:
         # pictures packed by pack_native and by pack
         self.native_packs = 0
         self.numpy_packs = 0
+        # intra records of the last packed picture (the first n columns of
+        # its irecp field; the rest is zero padding)
+        self.last_intra = 0
         self._layout_cache = None   # pack_native's (signature, layout)
 
     def grow(self, key, n):
@@ -696,6 +717,7 @@ class FeedPacker:
         if len(irec):
             irecp[:, :len(irec)] = _pack_irec(irec)
         host["irecp"] = irecp
+        self.last_intra = len(irec)
 
         # intra residuals reference bin_res[lg]: make sure those bins exist
         for (_, lg) in self.intra_lgs:
@@ -891,6 +913,7 @@ class FeedPacker:
         self.caps["steps"] = max(self.caps["steps"],
                                  _pow2(n_steps) if n_steps else 0)
         self.grow("nintra", max(int(caps[34]), 1))
+        self.last_intra = int(caps[34])
         for c in range(3):
             self.grow(f"pcm{c}", int(caps[39 + c]))
         n_slices = self.grow("slices", max(int(caps[44]), 1))

@@ -5,7 +5,8 @@ Per picture the host packs one int32 feed buffer plus a layout (``feed``),
 uploads it, and ``_compiled_impl`` runs the picture in the order of the JAX
 program: per-cell PU gather, motion compensation, coefficient densify
 (kernel B4), dequant + IDCT, residual add, PCM, the intra super-wave scan
-on padded planes (one persistent kernel per picture, running the device
+on padded planes (its records placed by one kernel from the uploaded wire
+records, then one persistent kernel per picture, running the device
 functions of kernels B6 and B7 in every step), deblocking (kernels B8, B9)
 and SAO (kernel B10).
 
@@ -26,8 +27,9 @@ package (which turns it on for TPU backends):
 The device of the tensors selects the implementation of each kernel: on a
 CUDA tensor the wrapper launches the hand-written Hopper kernel, on a CPU
 tensor it runs the plain PyTorch version.  Host-known values of the feed
-(the MC gate, the intra step counts, the ring rows) are read from the
-numpy buffer, so the frame program never waits on the device.
+(the MC gate, the intra step counts and size bins' depths, the ring rows)
+are read from the numpy buffer, so the frame program never waits on the
+device.
 
 JAX silently clamps out-of-range gather indices and drops out-of-range
 scatter writes (``mode="drop"``), and the feed relies on that with its
@@ -70,8 +72,7 @@ from .decoder import (TU_RDPCM, TU_RDPCM_VERTICAL, TU_TQ_BYPASS,
 
 from . import feed as fdp
 from . import pipeline
-from .feed import (AVAIL_WORDS, MAX_REFS, NOREF, RING_SLOTS, WAVE_CAP,
-                   FeedPacker)
+from .feed import MAX_REFS, NOREF, RING_SLOTS, FeedPacker
 from .frame_helpers import (_cells_to_plane, _mc_plane, _merge,
                             deblock_planes)
 from .ops import (coef_cuda, deblock_cuda, expand, intra_cuda, mc_seg,
@@ -83,7 +84,6 @@ from .ops.mc import EPEL_FILTERS, QPEL_FILTERS
 from .ops.sao import edge_boundary_ok
 from .ops.transform import ccp_add
 
-_PC_OF = {v: k for k, v in fdp._PLANE_CLASS.items()}
 SPARSE_BLOCK = 1024             # words per block of the sparse upload
 SPARSE_ROUND = 256              # its block count is rounded up to this
 
@@ -114,19 +114,6 @@ def _scatter(plane, rows, cols, vals, ok, add=False):
 # feed unpacking
 # ---------------------------------------------------------------------------
 
-def _unpack_irec(p):
-    """Inverse of feed._pack_irec: [8, cap] -> [cap, 15] int32 (numpy array
-    or tensor in, same kind out)."""
-    w0, w1, w2 = p[0], p[1], p[2]
-    cols = [w0 & 63, (w0 >> 6) & 15, w1 & 0xFFFF, (w1 >> 16) & 0xFFFF,
-            (w0 >> 10) & 15, (w2 & 0x3FFFFF) - 1, (w0 >> 19) & 0x1FFF,
-            (w2 >> 22) & 0x3FF, (w0 >> 14) & 3, (w0 >> 16) & 7,
-            p[3], p[4], p[5], p[6], p[7]]
-    if isinstance(p, np.ndarray):
-        return np.stack(cols, axis=1)
-    return torch.stack(cols, dim=1)
-
-
 def _split(buf, layout):
     """The feed fields as views of the packed buffer (bins as sub-dicts)."""
     feed = {}
@@ -142,9 +129,10 @@ def _split(buf, layout):
 
 
 def _expand_feed(feed, st=None):
-    """Expand the wire-compact feed fields: TU meta halfwords, the intra
-    records, the PU SoA and the per-4x4 grid word.  The coefficient stream
-    stays CSR (cv/coff) for densify_bin.  With st["g4_half"] (the
+    """Expand the wire-compact feed fields: TU meta halfwords, the PU SoA
+    and the per-4x4 grid word.  The coefficient stream stays CSR (cv/coff)
+    for densify_bin, the intra records packed (irecp) for
+    intra_cuda.intra_bins.  With st["g4_half"] (the
     production feed) the grid is halfwords and the per-cell PU index is
     painted from the segment feed (kernel B2), or is -1 everywhere when the
     stream has no inter picture; the wire PU SoA stays as "pu_wire" for the
@@ -158,8 +146,6 @@ def _expand_feed(feed, st=None):
             d["qp"] = ((h & 0x7F) ^ 64) - 64
             d["flags"] = (h >> 7) & 0x3F
             d["mid"] = (h >> 13) & 7
-    if "irecp" in feed:
-        feed["irec"] = _unpack_irec(feed.pop("irecp"))
     pu = feed["pu"]
     mv0, mv1, meta, sl = pu[:, 0], pu[:, 1], pu[:, 2], pu[:, 3]
     feed["pu_wire"] = pu
@@ -202,17 +188,19 @@ def _expand_feed(feed, st=None):
         feed["pu_idx"] = ((g4 >> 17) & 0x7FFF) - 1
 
 
-def _host_values(hbuf, layout):
-    """Host-side copies of the feed values that steer control flow."""
+def _host_values(hbuf, layout, n_intra: int):
+    """Host-side copies of the feed values that steer control flow; the
+    depth of each intra size bin from word 0 of the picture's n_intra
+    records (feed.record_depths)."""
     hfeed = _split(hbuf, layout)
-    irec = _unpack_irec(hfeed["irecp"])
     return {"mc_on": bool(hfeed["mc_on"][0]),
-            "nsteps": np.asarray(hfeed["nsteps"]), "irec": irec,
+            "nsteps": np.asarray(hfeed["nsteps"]), "n_intra": n_intra,
+            "depths": fdp.record_depths(hfeed["irecp"][0, :n_intra]),
             "slot_row": [int(v) for v in hfeed.get("slot_row", ())]}
 
 
 def _compiled_impl(refs_y, refs_cb, refs_cr, buf, sf_tables, st, layout,
-                   host_buf=None):
+                   host_buf=None, *, n_intra: int):
     """The whole-picture program on the packed feed.
 
     refs_*: [MAX_REFS, h, w] int32 reference stacks, or with
@@ -220,15 +208,17 @@ def _compiled_impl(refs_y, refs_cb, refs_cr, buf, sf_tables, st, layout,
     buf: the uploaded int32 feed; st: the static configuration (a dict, or
     the JAX package's tuple of pairs); layout: (name, offset, shape)
     triples into buf; host_buf: the numpy buffer buf was uploaded from
-    (read back from buf if None).  Returns the decoded planes, followed
-    with fuse_store by the three rings (updated in place)."""
+    (read back from buf if None); n_intra: the picture's intra records
+    (the packer's count: the first columns of the irecp field).  Returns
+    the decoded planes, followed with fuse_store by the three rings
+    (updated in place)."""
     std = dict(st)
     with tracing.span("tde.unpack"):
         if host_buf is None:
             host_buf = buf.cpu().numpy()
         feed = _split(buf, layout)
         _expand_feed(feed, std)
-        host = _host_values(host_buf, layout)
+        host = _host_values(host_buf, layout, n_intra)
     return _frame_fn(refs_y, refs_cb, refs_cr, feed, sf_tables, std, host)
 
 
@@ -338,12 +328,7 @@ def _frame_fn(refs_y, refs_cb, refs_cr, feed, sf_tables, st, host):
 
     # ---- intra super-wave scans (one merged scan over all planes) ----
     with tracing.span("tde.intra"):
-        if st["intra_bins"]:
-            bins_by_plane = _scatter_intra_bins(feed["irec"], host["irec"],
-                                                st["intra_bins"],
-                                                st["steps_cap"])
-            planes = _intra_scan_all(planes, bins_by_plane, bin_res, st,
-                                     host["nsteps"])
+        planes = _intra_section(planes, feed, bin_res, st, host)
 
     # ---- loop filters ----
     with tracing.span("tde.deblock"):
@@ -603,29 +588,28 @@ def _mc_section(refs_y, refs_cb, refs_cr, cell, wg, st, pb_h, pb_w,
 def _scatter_intra_bins(irec, irec_host, intra_bins, scap: int):
     """Scatter the flat intra records into per-(plane, lg) scan arrays on
     the device: {cidx: {lg: {"meta" [scap,K,5], "rrow" [scap,K],
-    "aw" [scap,K,AVAIL_WORDS], "depth" (host int)}}}."""
-    out = {}
-    dev = irec.device
-    for (pc, lg) in intra_bins:
-        c = _PC_OF[pc]
-        K = WAVE_CAP[lg]
-        step, slot = irec[:, 6].long(), irec[:, 7].long()
-        ok = (irec[:, 8] == c) & (irec[:, 9] == lg) & (step < scap) & \
-            (slot >= 0) & (slot < K)
-        # rows of other bins go to a scratch step row scap
-        idx = (torch.where(ok, step, scap), slot.clamp(0, K - 1))
-        meta = torch.zeros((scap + 1, K, 5), dtype=torch.int32, device=dev)
-        meta.index_put_(idx, irec[:, 0:5])
-        rrow = torch.full((scap + 1, K), -1, dtype=torch.int32, device=dev)
-        rrow.index_put_(idx, irec[:, 5])
-        aw = torch.zeros((scap + 1, K, AVAIL_WORDS), dtype=torch.int32,
-                         device=dev)
-        aw.index_put_(idx, irec[:, 10:10 + AVAIL_WORDS])
-        hs = (irec_host[:, 8] == c) & (irec_host[:, 9] == lg)
-        depth = int((irec_host[hs, 6] + 1).max(initial=0))
-        out.setdefault(c, {})[lg] = {"meta": meta[:scap], "rrow": rrow[:scap],
-                                     "aw": aw[:scap], "depth": depth}
-    return out
+    "aw" [scap,K,feed.AVAIL_WORDS], "depth" (host int)}}}, each bin's depth
+    from the host copy irec_host (intra_cuda.scatter_records, the plain
+    version of intra_cuda.intra_bins)."""
+    return intra_cuda.scatter_records(
+        irec, intra_bins, scap,
+        fdp.bin_depths(irec_host[:, 8], irec_host[:, 9], irec_host[:, 6]))
+
+
+def _intra_section(planes, feed, bin_res, st, host):
+    """The intra scan of a picture: the scan arrays of every size bin from
+    the uploaded records (intra_cuda.intra_bins: one memset and one launch
+    on the card), then the scan.  A picture without intra records (every
+    bin's depth 0) runs nothing and returns its planes."""
+    depths = host["depths"]
+    if not any(depths[intra_cuda.PLANE_OF[pc], lg]
+               for pc, lg in st["intra_bins"]):
+        return planes
+    bins_by_plane = intra_cuda.intra_bins(feed["irecp"], st["intra_bins"],
+                                          st["steps_cap"], depths,
+                                          host["n_intra"])
+    return _intra_scan_all(planes, bins_by_plane, bin_res, st,
+                           host["nsteps"])
 
 
 def _scan_steps(bins_by_plane, n_planes, nsteps, dev, step_fn):
@@ -1095,13 +1079,14 @@ class FusedDecoder:
             with tracing.span("tde.upload"):
                 dbuf = torch.from_numpy(buf).to(self.device)
             out = _compiled_impl(refs[0], refs[1], refs[2], dbuf, sft, st,
-                                 layout, host_buf=buf)
+                                 layout, host_buf=buf,
+                                 n_intra=pk.last_intra)
             self._store(prog.poc, out)
             return out
         with tracing.span("tde.upload"):
             dbuf = self._sparse_upload(buf)
         out_all = _compiled_impl(refs[0], refs[1], refs[2], dbuf, sft, st,
-                                 layout, host_buf=buf)
+                                 layout, host_buf=buf, n_intra=pk.last_intra)
         n_pl = 3 if has_chroma else 1
         self._stack = list(out_all[n_pl:])
         return tuple(out_all[:n_pl])

@@ -37,6 +37,7 @@ SIGNATURES = {
     "tde_window_scatter": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
     "tde_intra_step": [_P, _I, _I, _P],
     "tde_intra_scan": [_P, _P],
+    "tde_intra_bins": [_P, _P],        # (const BinArgs*, stream)
     "tde_scan_threads": [],
     "tde_chain_probe": [_P, _I, _I, _I, _P, _P],
     "tde_mc_stripes": [_P, _L, _I, _P, _P, _I, _I, _P, _I, _P, _I, _I, _I,

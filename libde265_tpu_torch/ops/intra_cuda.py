@@ -20,7 +20,7 @@ each block from its residual and border loads to its store within one warp
 (four 4x4 blocks, two 8x8, one 16x16 or 32x32 a warp), an angular mode
 through the spec's reference array, built once a block from the mode's
 angle (no table is read).  The records stay where
-``_scatter_intra_bins`` put them; their pointers, depths and residual rows
+``intra_bins`` put them; their pointers, depths and residual rows
 go to the kernel in one argument struct by value.
 
 The fused step: the same kernel on one (plane, size, step) bin of the
@@ -32,9 +32,17 @@ hold it against its plain version (``intra_step_plain``: B6's plain gather,
 
 The angular tables passed to the wrappers (``build_mode_tables``) serve the
 plain versions.  The records and residual rows must be 16-byte aligned
-with K a multiple of 4 and at most ``MAX_SLOTS[lg]``, as
-``_scatter_intra_bins`` makes them (K = WAVE_CAP): the kernel copies the
-records 16 bytes at a time and reads the residual a quad at a time.
+with K a multiple of 4 and at most ``MAX_SLOTS[lg]``, as ``intra_bins``
+makes them (K = WAVE_CAP): the kernel copies the records 16 bytes at a
+time and reads the residual a quad at a time.
+
+The scan's records: ``intra_bins`` writes every (plane, size) bin's scan
+arrays of a picture from the uploaded wire records (``feed._pack_irec``)
+with one memset and one launch of ``tde_intra_bins``
+(``csrc/intra_bins.cu``) into one int32 arena a call; its plain version,
+``intra_bins_plain``, is the composition the picture program ran before
+(the records unpacked into 15 columns, then three ``index_put_`` a bin:
+``scatter_records``).
 """
 from __future__ import annotations
 
@@ -51,9 +59,12 @@ from .intra_wave import build_mode_tables, wave_predict
 
 launches = 0       # fused step launches since the last reset (chip_smoke)
 scan_launches = 0  # persistent scan launches since the last reset
+bin_launches = 0   # tde_intra_bins launches since the last reset
 
 # csrc/intra.cu max_slots: the most slots of a size bin by lg (WAVE_CAP)
 MAX_SLOTS = {2: 256, 3: 128, 4: 64, 5: 16}
+PLANE_OF = {"y": 0, "cb": 1, "cr": 2}   # plane class -> plane
+AW_WORDS = 5       # availability words of a record (feed.AVAIL_WORDS)
 
 
 class _ScanBin(ct.Structure):
@@ -254,3 +265,137 @@ def intra_step(padded, meta_all, rrow_all, aw_all, step: int, res, P0, P1,
     _build.check_launch("tde_intra_step", rc)
     launches += 1
     return padded
+
+
+# ---------------------------------------------------------------------------
+# the scan's records of a picture (tde_intra_bins)
+# ---------------------------------------------------------------------------
+
+def unpack_records(p):
+    """Inverse of feed._pack_irec: [8, cap] -> [cap, 15] int32 (numpy array
+    or tensor in, same kind out)."""
+    w0, w1, w2 = p[0], p[1], p[2]
+    cols = [w0 & 63, (w0 >> 6) & 15, w1 & 0xFFFF, (w1 >> 16) & 0xFFFF,
+            (w0 >> 10) & 15, (w2 & 0x3FFFFF) - 1, (w0 >> 19) & 0x1FFF,
+            (w2 >> 22) & 0x3FF, (w0 >> 14) & 3, (w0 >> 16) & 7,
+            p[3], p[4], p[5], p[6], p[7]]
+    if isinstance(p, np.ndarray):
+        return np.stack(cols, axis=1)
+    return torch.stack(cols, dim=1)
+
+
+def scatter_records(irec, bins, scap: int, depths):
+    """The flat intra records [n, 15] (feed.IREC_COLS) scattered into the
+    scan arrays of each (plane class, lg) bin of `bins`: {plane: {lg:
+    {"meta" [scap, K, 5], "rrow" [scap, K], "aw" [scap, K, AW_WORDS],
+    "depth" depths[plane, lg]}}}, K = MAX_SLOTS[lg].  A record goes to
+    (step, slot) of its bin; records of other bins, with step >= scap or
+    with a slot outside [0, K) are dropped; unused slots hold 0 (meta, aw)
+    and -1 (rrow)."""
+    out = {}
+    dev = irec.device
+    step, slot = irec[:, 6].long(), irec[:, 7].long()
+    for (pc, lg) in bins:
+        c = PLANE_OF[pc]
+        K = MAX_SLOTS[lg]
+        ok = (irec[:, 8] == c) & (irec[:, 9] == lg) & (step < scap) & \
+            (slot >= 0) & (slot < K)
+        # rows of other bins go to a scratch step row scap
+        idx = (torch.where(ok, step, scap), slot.clamp(0, K - 1))
+        meta = torch.zeros((scap + 1, K, 5), dtype=torch.int32, device=dev)
+        meta.index_put_(idx, irec[:, 0:5])
+        rrow = torch.full((scap + 1, K), -1, dtype=torch.int32, device=dev)
+        rrow.index_put_(idx, irec[:, 5])
+        aw = torch.zeros((scap + 1, K, AW_WORDS), dtype=torch.int32,
+                         device=dev)
+        aw.index_put_(idx, irec[:, 10:10 + AW_WORDS])
+        out.setdefault(c, {})[lg] = {"meta": meta[:scap], "rrow": rrow[:scap],
+                                     "aw": aw[:scap],
+                                     "depth": int(depths[c, lg])}
+    return out
+
+
+def intra_bins_plain(irecp, bins, scap: int, depths, n=None):
+    """Plain version of intra_bins: the first n wire records (all of them
+    when n is None) unpacked, then scatter_records."""
+    n = irecp.shape[1] if n is None else n
+    return scatter_records(unpack_records(irecp[:, :n]), bins, scap, depths)
+
+
+class _BinArgs(ct.Structure):
+    """csrc/intra_bins.cu BinArgs, passed by address to tde_intra_bins and
+    by value to the kernel."""
+    _fields_ = [("rec", ct.c_void_p), ("pitch", ct.c_longlong),
+                ("n", ct.c_int), ("scap", ct.c_int), ("arena", ct.c_void_p),
+                ("arena_words", ct.c_longlong), ("rrow_at", ct.c_longlong),
+                ("rrow_words", ct.c_longlong), ("meta", ct.c_longlong * 12),
+                ("rrow", ct.c_longlong * 12), ("aw", ct.c_longlong * 12),
+                ("K", ct.c_int * 12), ("aw_words", ct.c_int)]
+
+
+@functools.lru_cache(maxsize=None)
+def _bin_layout(bins, scap: int):
+    """The arena of (bins, scap): per bin its meta and aw arrays, then
+    every bin's rrow array in one run (each a multiple of 16 bytes, K % 4
+    == 0).  Returns the kernel's arguments with the offsets set (bytes),
+    the arena's words, the parts' sizes in order, and per bin (plane, lg,
+    the shapes of its meta, rrow and aw, their indices among the parts)."""
+    if scap < 1 or len(set(bins)) != len(bins) or any(
+            pc not in PLANE_OF or lg not in MAX_SLOTS for pc, lg in bins):
+        raise ValueError(f"intra_bins: bad bins {bins} or steps {scap}")
+    a = _BinArgs(scap=scap, aw_words=AW_WORDS)
+    at, sizes, layout = 0, [], []
+    for j, (pc, lg) in enumerate(bins):
+        b, K = 4 * PLANE_OF[pc] + lg - 2, MAX_SLOTS[lg]
+        a.K[b], a.meta[b], a.aw[b] = K, at, at + scap * K * 5
+        at += scap * K * (5 + AW_WORDS)
+        sizes += [scap * K * 5, scap * K * AW_WORDS]
+        layout.append((PLANE_OF[pc], lg,
+                       ((scap, K, 5), (scap, K), (scap, K, AW_WORDS)),
+                       (2 * j, 2 * len(bins) + j, 2 * j + 1)))
+    a.rrow_at = at
+    for pc, lg in bins:
+        a.rrow[4 * PLANE_OF[pc] + lg - 2] = at
+        at += scap * MAX_SLOTS[lg]
+        sizes.append(scap * MAX_SLOTS[lg])
+    a.rrow_words, a.arena_words = at - a.rrow_at, at
+    return bytes(a), at, sizes, layout
+
+
+def intra_bins(irecp, bins, scap: int, depths, n=None):
+    """The scan arrays of every (plane class, lg) bin of `bins` from the
+    first n (default: all) wire records irecp [8, >= n] int32 (feed.
+    _pack_irec), as scatter_records gives them from the unpacked records:
+    {plane: {lg: {"meta" [scap, K, 5], "rrow" [scap, K], "aw" [scap, K,
+    AW_WORDS], "depth" depths[plane, lg]}}}.  depths: host ints by [plane,
+    lg] (feed.record_depths).
+
+    On the card: the arrays are views of one int32 arena, allocated by the
+    call (so it lives as long as the caller holds them, as the plain
+    version's arrays do), set by one memset and one tde_intra_bins launch.
+    A CPU tensor runs the plain version."""
+    global bin_launches
+    n = irecp.shape[1] if n is None else int(n)
+    if not on_cuda("intra_bins", irecp):
+        return intra_bins_plain(irecp, bins, scap, depths, n)
+    dev = irecp.device
+    check("intra_bins", dev, torch.int32, irecp)
+    if irecp.dim() != 2 or irecp.shape[0] != 8 or \
+            not 0 <= n <= irecp.shape[1]:
+        raise ValueError(f"intra_bins: records must be [8, >= n] int32, got "
+                         f"{tuple(irecp.shape)} with n = {n}")
+    args, words, sizes, layout = _bin_layout(tuple(bins), int(scap))
+    arena = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
+    a = _BinArgs.from_buffer_copy(args)
+    a.arena, a.rec, a.pitch, a.n = (arena.data_ptr(), irecp.data_ptr(),
+                                    irecp.shape[1], n)
+    rc = _build.lib().tde_intra_bins(ct.addressof(a), stream_of(irecp))
+    _build.check_launch("tde_intra_bins", rc)
+    bin_launches += 1
+    parts = arena[:words].split(sizes) if sizes else ()
+    out = {}
+    for c, lg, (ms, rs, ws), (i, j, k) in layout:
+        out.setdefault(c, {})[lg] = {
+            "meta": parts[i].view(ms), "rrow": parts[j].view(rs),
+            "aw": parts[k].view(ws), "depth": int(depths[c, lg])}
+    return out

@@ -37,7 +37,7 @@ import torch
 
 from ..decoder import FrameProgramData
 from ..feed import (_PLANE_CLASS, MAX_REFS, NOREF, _bin_tus, _intra_records,
-                    _pad_rows, has_ccp, has_rdpcm)
+                    _pack_irec, _pad_rows, has_ccp, has_rdpcm, record_depths)
 from ..fused_decode import (_attached, _deblock_section, _frame_fn,
                             _sao_section, _split)
 from ..ops.sao import EO_D
@@ -511,7 +511,7 @@ class ShardedTileDecoder:
         for pt, f in zip(per_tile, feeds):
             y4, x4 = pt["y0"] // 4, pt["x0"] // 4
             yc, xc = pt["y0"] // ctb, pt["x0"] // ctb
-            f["irec"] = pt["irec"].astype(np.int32)
+            f["irecp"] = _pack_irec(pt["irec"].astype(np.int32))
             # MVs pre-biased by 4 * the tile origin
             f["pu"] = pu_raw.copy()
             f["pu"][:len(prog.pus), 0:4] += 4 * np.array(
@@ -563,7 +563,9 @@ class ShardedTileDecoder:
             self._add_filter_feed(feeds, prog, per_tile, th, tw, pu_raw)
 
         host = [{"mc_on": len(prog.pus) > 0, "nsteps": nsteps_pc,
-                 "irec": pt["irec"], "slot_row": []} for pt in per_tile]
+                 "n_intra": f["irecp"].shape[1],
+                 "depths": record_depths(f["irecp"][0]), "slot_row": []}
+                for f in feeds]
         planes = self._run_sharded(refs, feeds, host, st, (R, C),
                                    halo=halo_mode, std=std,
                                    origins=[(pt["x0"], pt["y0"])

@@ -17,7 +17,10 @@ device ms, device operations by name), and the deblocking section's host
 time alone (`deblock_host`: perf_counter_ns over batches of calls, no
 profiler and no synchronisation inside a batch: the time the calling
 thread spends to enqueue the section, which is what paces a decode whose
-card is mostly idle).  A checkout whose picture program
+card is mostly idle), and the same of its intra section (`intra_host`:
+the records into the scan's per-bin arrays and the scan, on the picture's
+own feed, residuals and plane shapes, as the measured checkout runs the
+section).  A checkout whose picture program
 runs the residual section inline (no fused_decode._residual_section) gets
 the same statements run on its modules (`residual_inline`).  Then the host
 time of each step of one B1 wrapper call on the P picture's inputs
@@ -294,13 +297,7 @@ def residual_inline(fdm, feed, sf_tables, st):
 
 def deblock_host(progs, idx, batches=7, n=100):
     """Host us per call of fused_decode._deblock_section on picture idx's
-    arguments (the pictures before it decoded first): the mean of each
-    batch of n calls (perf_counter_ns around the batch, synchronised
-    before and after it, not inside), median and least over the batches;
-    and the synced us of one call, median over the batches' first calls."""
-    import time
-    import statistics
-    import torch
+    arguments (the pictures before it decoded first; _timed_batches)."""
     import libde265_tpu_torch as lt
     fdm = lt.fused_decode
     fd = lt.FusedDecoder()
@@ -319,22 +316,80 @@ def deblock_host(progs, idx, batches=7, n=100):
     finally:
         fdm._deblock_section = section
     a, k = seen[0]
+    return _timed_batches(lambda: section(*a, **k), batches, n)
+
+
+def _timed_batches(fn, batches, n):
+    """Host us of fn: the mean of each batch of n calls (perf_counter_ns
+    around the batch, synchronised before and after it, not inside),
+    median and least over the batches; and the synced us of one call,
+    median over the batches' first calls."""
+    import time
+    import statistics
+    import torch
     for _ in range(10):
-        section(*a, **k)
+        fn()
     means, synced = [], []
     for _ in range(batches):
         torch.cuda.synchronize()
         t0 = time.perf_counter_ns()
-        section(*a, **k)
+        fn()
         torch.cuda.synchronize()
         synced.append((time.perf_counter_ns() - t0) / 1000)
         t0 = time.perf_counter_ns()
         for _ in range(n):
-            section(*a, **k)
+            fn()
         means.append((time.perf_counter_ns() - t0) / n / 1000)
         torch.cuda.synchronize()
     return {"host_us": statistics.median(means), "host_us_min": min(means),
             "host_us_batches": means, "synced_us": statistics.median(synced)}
+
+
+def intra_host(progs, idx, batches=7, n=20):
+    """Host us per run of the intra section of picture idx (the pictures
+    before it decoded first; _timed_batches): the picture's _frame_fn
+    arguments captured while it decodes, its residuals from them
+    (_residual_section), zero planes of its shapes before the scan; then
+    fused_decode._intra_section where the checkout has one, else the
+    statements its _frame_fn runs there (_scatter_intra_bins on the
+    unpacked records, then _intra_scan_all).  n is small: each call
+    enqueues the scan, some hundreds of us of device time at 1080p."""
+    import torch
+    import libde265_tpu_torch as lt
+    fdm = lt.fused_decode
+    fd = lt.FusedDecoder()
+    fd.plan_stream(progs)
+    for p in progs[:idx]:
+        fd.decode(p)
+    frame_fn, seen = fdm._frame_fn, []
+
+    def record(*a):
+        seen.append(a)
+        return frame_fn(*a)
+
+    fdm._frame_fn = record
+    try:
+        fd.decode(progs[idx])
+    finally:
+        fdm._frame_fn = frame_fn
+    _, _, _, feed, sf_tables, st, host = seen[0]
+    bin_res = fdm._residual_section(feed, sf_tables, st)
+    dev = feed["pu"].device
+    shapes = [(st["H"], st["W"])] + \
+        ([] if st["mono"] else [(st["ch"], st["cw"])] * 2)
+    planes = [torch.zeros(s, dtype=torch.int32, device=dev) for s in shapes]
+    if hasattr(fdm, "_intra_section"):
+        def run():
+            fdm._intra_section(planes, feed, bin_res, st, host)
+    else:
+        def run():
+            if st["intra_bins"]:
+                bins = fdm._scatter_intra_bins(feed["irec"], host["irec"],
+                                               st["intra_bins"],
+                                               st["steps_cap"])
+                fdm._intra_scan_all(planes, bins, bin_res, st,
+                                    host["nsteps"])
+    return _timed_batches(run, batches, n)
 
 
 def sections(progs, idx):
@@ -399,6 +454,11 @@ def main():
         print(json.dumps({"root": str(root), "section": "deblock_host",
                           "picture": f"{what} {idx}",
                           **deblock_host(progs, idx), "card": smi}),
+              flush=True)
+        print(json.dumps({"root": str(root), "section": "intra_host",
+                          "picture": f"{what} {idx}",
+                          "intra_records": len(progs[idx].intras),
+                          **intra_host(progs, idx), "card": smi}),
               flush=True)
     caps = _p_picture_calls(progs, first_p)
     launch_steps(caps, root, smi)

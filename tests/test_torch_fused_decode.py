@@ -85,7 +85,7 @@ def _check_frame_programs(stream, pallas_intra):
             torch.from_numpy(ry), torch.from_numpy(rcb),
             torch.from_numpy(rcr), torch.from_numpy(buf),
             None if sft is None else tuple(map(torch.from_numpy, sft)),
-            st, layout)
+            st, layout, n_intra=len(progs[i].intras))
         assert len(got) == len(want)
         for c in range(len(want)):
             np.testing.assert_array_equal(got[c].numpy(), want[c],
@@ -284,7 +284,7 @@ def test_production_frame_program_matches_jax(native_build):
         assert std["pallas_mc"] and std["fuse_store"] and std["g4_half"]
         assert sft is None
         got = tfd._compiled_impl(*map(torch.from_numpy, args), None, st,
-                                 layout)
+                                 layout, n_intra=len(progs[i].intras))
         assert len(got) == len(want) == 6
         for c in range(6):
             np.testing.assert_array_equal(got[c].numpy(), want[c],

@@ -68,6 +68,40 @@ def test_sharded_tile_decode(native_build, grid, across):
 
 
 @pytest.mark.parametrize("grid", list(GRIDS), ids=["1x4", "2x2", "2x4"])
+def test_tile_feeds_carry_packed_records(native_build, monkeypatch, grid):
+    """Each tile program gets its localized intra records packed as the
+    picture program's feed carries them (irecp, no flat irec) and the
+    depth of each size bin from them; the tiles still equal the oracle."""
+    from libde265_tpu_torch.feed import _pack_irec, bin_depths
+    from libde265_tpu_torch.ops.intra_cuda import unpack_records
+    from libde265_tpu_torch.parallel import sharded_decode as sdm
+    calls, frame_fn = [], sdm._frame_fn
+
+    def record(*args):
+        calls.append((args[3], args[6]))
+        return frame_fn(*args)
+
+    monkeypatch.setattr(sdm, "_frame_fn", record)
+    sd = ShardedTileDecoder(make_mesh(devices=["cpu"] * (grid[0] * grid[1])))
+    for i, prog in enumerate(_programs(grid, True)):
+        calls.clear()
+        parts = sd._partition(prog)[0]
+        _assert_oracle(sd.decode(prog), prog, f"frame {i}")
+        assert len(calls) == len(parts)
+        for (feed, host), pt in zip(calls, parts):
+            assert "irec" not in feed and "irec" not in host
+            irec = pt["irec"]
+            np.testing.assert_array_equal(
+                unpack_records(feed["irecp"].numpy()), irec)
+            np.testing.assert_array_equal(
+                feed["irecp"].numpy(), _pack_irec(irec))
+            assert host["n_intra"] == len(irec) == len(prog.intras)
+            np.testing.assert_array_equal(
+                host["depths"], bin_depths(irec[:, 8], irec[:, 9],
+                                           irec[:, 6]))
+
+
+@pytest.mark.parametrize("grid", list(GRIDS), ids=["1x4", "2x2", "2x4"])
 def test_partition_equals_jax(native_build, grid):
     """tile_grid, the per-tile TU bins and the localized intra records of
     every picture equal the JAX package's."""
