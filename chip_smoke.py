@@ -17,8 +17,7 @@ Phases (any failure raises and the script exits non-zero):
        b. a 1920x1088 all-intra GOP (4 frames, intra period 1), decoded
           with PipelinedDecoder(): the intra scan, one persistent kernel
           launch and one launch of its records' kernel (intra_bins) per
-          picture with intra blocks and none for the others, no
-          fused-step launch;
+          picture with intra blocks and none for the others;
      each run with every picture packed by the native feed packer
      (FeedPacker.pack_native; the packer's counters), then the parse of
      each stream alone (host ms per picture), the native
@@ -50,9 +49,9 @@ Phases (any failure raises and the script exits non-zero):
      and B9 (both edge orientations of a plane in one launch) are also
      held through the per-orientation wrappers.  The persistent scan
      also on synthetic pictures whose steps share all four luma sizes.
-     The separate B6 and B7 kernels and the fused step (the scan's body,
-     one launch per step and size bin) are held here only: the decode
-     runs B6's gather and B7's store inside the persistent scan;
+     The separate B6 and B7 kernels (the JAX package's two Pallas
+     kernels' counterparts) are held here only: the decode runs B6's
+     gather and B7's store inside the persistent scan;
   5. small streams, bit-exact on the card: 104x72 with CTB 64 (two intra
      sizes per plane, a chroma plane that is not a multiple of 8 wide or
      high), a 416x240 B/weighted/2-ref stream under both formulations, two
@@ -125,9 +124,8 @@ phases 3, 6, 7 and 8; intra_bins is checked at one launch a picture with
 intra records (a tile with them, in 7b) and none for the others in each
 of them, and every captured call of it against its plain version (phase
 4, each scan held in phases 4 and 5, phase 7b).  The last three lines of
-stdout are the kernels JSON object (all fourteen rows: B1-B10, the
-deblocking edge parameters, the fused step, the persistent scan and its
-records),
+stdout are the kernels JSON object (all thirteen rows: B1-B10, the
+deblocking edge parameters, the persistent scan and its records),
 the card's nvidia-smi line and the result line {"ok": true, "device":
 {...}}.
 Nothing here imports JAX or the JAX package libde265_tpu.
@@ -158,7 +156,6 @@ B6, B7 = "B6 border_gather", "B7 window_scatter"
 B8, B9 = "B8 deblock_luma (V+H)", "B9 deblock_chroma (V+H)"
 B10 = "B10 sao_plane_fused"
 PARAMS = "B8+B9 deblock_params (edge parameters)"
-STEP = "B6+B7 intra_step (fused)"
 SCAN = "B6+B7 intra_scan (persistent)"
 BINS = "intra_bins (scan records)"
 
@@ -198,12 +195,11 @@ KERNELS = {
            "libde265_tpu/fused_decode.py:268,480 (_unpack_irec, "
            "_scatter_intra_bins, XLA)", "intra_cuda", "bin_launches", 1),
 }
-# The separate B6 and B7 kernels and the fused step (the scan's body, one
-# launch per step and size bin): the decode runs B6's gather and B7's store
-# inside the persistent scan, one launch per picture, so these three are
-# held against their plain versions in phase 4 only, on the first I
-# picture's step sequence (no main-path launch check; their rows show 0
-# launches).
+# The separate B6 and B7 kernels, the counterparts of the JAX package's two
+# Pallas kernels: the decode runs B6's gather and B7's store inside the
+# persistent scan, one launch per picture, so these two are held against
+# their plain versions in phase 4 only, on the first I picture's step
+# sequence (no main-path launch check; their rows show 0 launches).
 HELD = {
     B6: ("libde265_tpu_torch/csrc/intra.cu",
          "libde265_tpu/ops/intra_window_pallas.py:133",
@@ -211,15 +207,12 @@ HELD = {
     B7: ("libde265_tpu_torch/csrc/intra.cu",
          "libde265_tpu/ops/intra_window_pallas.py:252",
          "intra_window", "scatter_launches", 6),
-    STEP: ("libde265_tpu_torch/csrc/intra.cu",
-           "libde265_tpu/ops/intra_window_pallas.py:133,252",
-           "intra_cuda", "launches", 60),
 }
 ALL = {**KERNELS, **HELD}
 NAMES = list(ALL)
-ROWS = [B1, B2, B3, B4, B5, B6, B7, B8, B9, PARAMS, B10, STEP,
-        SCAN, BINS]  # kernels line
-INTRA = (SCAN, STEP, B6, B7)
+ROWS = [B1, B2, B3, B4, B5, B6, B7, B8, B9, PARAMS, B10, SCAN,
+        BINS]  # kernels line
+INTRA = (SCAN, B6, B7)
 
 # wrapper (module, function) -> family
 WRAPPERS = {("expand", "expand_blocks"): B1,
@@ -237,13 +230,12 @@ WRAPPERS = {("expand", "expand_blocks"): B1,
             ("deblock_cuda", "deblock_params"): PARAMS,
             ("sao_cuda", "sao_plane_fused"): B10,
             ("intra_cuda", "intra_scan"): SCAN,
-            ("intra_cuda", "intra_step"): STEP,
             ("intra_cuda", "intra_bins"): BINS,
             ("intra_window", "border_gather"): B6,
             ("intra_window", "window_scatter"): B7}
 FAMILY = {fn: fam for (_, fn), fam in WRAPPERS.items()}
 MODULE = {fn: m for (m, fn) in WRAPPERS}
-INPLACE = ("window_scatter", "intra_step")   # update their first argument
+INPLACE = ("window_scatter",)   # updates its first argument
 # Device ms of the earlier designs (PERF.md, NVIDIA H100 80GB HBM3, 700.00
 # W), printed beside this run's: B3, B5 and B2 per 1080p P picture in their
 # first designs (B3 and B5: one CTA per segment slot of a watermark x bands
@@ -251,15 +243,13 @@ INPLACE = ("window_scatter", "intra_step")   # update their first argument
 # each walking every segment of its band), B8 and B9 per 1080p P picture in
 # their first design (one launch per edge orientation, one thread per
 # segment and edge, each on a clone of a zero-padded copy of the plane),
-# the fused intra step per 1080p I picture when it ran the main path
-# (1584 launches), B4 per 1080p P picture in its first design (one
-# launch per size bin, a warp per TU, over a zero-filled output), and B1
+# and B4 per 1080p P picture in its first design (one launch per size bin,
+# a warp per TU, over a zero-filled output)
 B3_FIRST_DESIGN_MS = 0.2100
 B5_FIRST_DESIGN_MS = 0.0737
 B2_FIRST_DESIGN_MS = 0.0191
 B8_FIRST_DESIGN_MS = 0.0280
 B9_FIRST_DESIGN_MS = 0.0156
-FUSED_STEP_MAIN_PATH_MS = 7.9225
 # The persistent scan per 1080p I picture in its first design (one
 # 1024-thread CTA per plane walking the (step, size bin) pairs, four block
 # barriers and two dependent global round trips each)
@@ -656,15 +646,16 @@ def scan_inputs(intra, dev, bit_depth=8):
     intra_scan's arguments on `dev`: (padded planes, bins_by_plane,
     bin_res, tables, nsteps, bit depths)."""
     import torch
-    from libde265_tpu_torch import fused_decode as fdm
+    from libde265_tpu_torch.feed import bin_depths
     from libde265_tpu_torch.ops import intra_cuda
     from libde265_tpu_torch.ops import intra_window as iw
     planes, irec, nsteps, res = intra
     bins = tuple(sorted({(("y", "cb", "cr")[int(c)], int(lg))
                          for c, lg in irec[:, 8:10]}))
     scap = int(irec[:, 6].max()) + 1
-    by_plane = fdm._scatter_intra_bins(torch.from_numpy(irec).to(dev), irec,
-                                       bins, scap)
+    by_plane = intra_cuda.scatter_records(
+        torch.from_numpy(irec).to(dev), bins, scap,
+        bin_depths(irec[:, 8], irec[:, 9], irec[:, 6]))
     padded = [iw.pad_plane_for_scan(torch.from_numpy(p).to(dev),
                                     *iw.scan_pad_sizes(*p.shape))
               for p in planes]
@@ -975,8 +966,9 @@ def _add(a, b):
 class IntraTrace:
     """A picture's intra scan (the arguments of intra_cuda.intra_scan): the
     padded planes before it (`initial`) and after it (`final`), keyed by
-    plane; the scan's other arguments (`scan`); and the same scan as the
-    fused step's calls in scan order (`calls`: (plane, args, kwargs))."""
+    plane; the scan's other arguments (`scan`); and the scan's (step,
+    plane, size bin) steps in scan order, as intra_step_plain's arguments
+    (`calls`: (plane, args, kwargs))."""
 
     def __init__(self, padded, bins, bin_res, tables, nsteps, bit_depths):
         from libde265_tpu_torch.ops import intra_cuda
@@ -1088,36 +1080,21 @@ def _csr_bin(rng, N, S):
 def _intra_records(rng, s, K, H, W, bd):
     """One step of K disjoint blocks of size s on an H x W plane, about a
     quarter of the slots invalid and scattered (valid ones do not lead):
-    meta [K, 5], aw [K, 5], resid [K, s, s] (numpy).  As in a real step, no
-    available border sample lies in a block of the same step, nor outside
-    the picture."""
-    nb, n2 = 4 * s + 1, 2 * s
+    meta [K, 5], resid [K, s, s] (numpy)."""
     gw, gh = W // s, H // s
     cells = rng.permutation(gw * gh)[:K]
     ys, xs = (cells // gw) * s, (cells % gw) * s
     invalid = rng.random(K) < 0.25
-    occ = np.zeros((gh, gw), bool)
-    occ[ys[~invalid] // s, xs[~invalid] // s] = True
     meta = np.zeros((K, 5), np.int64)
     meta[:, 0] = rng.integers(0, 35, K)
     meta[:, 1] = rng.integers(0, 4, K) if s < 32 else 0
     meta[:, 2], meta[:, 3] = ys, xs
     meta[:, 4] = ((rng.random(K) < 0.1) * 1 | (rng.random(K) < 0.6) * 2 |
                   (rng.random(K) < 0.5) * 4 | 8)
-    j = np.arange(nb)
-    by = np.where(j < n2, ys[:, None] + n2 - 1 - j, ys[:, None] - 1)
-    bx = np.where(j <= n2, xs[:, None] - 1, xs[:, None] + j - n2 - 1)
-    inside = (by >= 0) & (by < H) & (bx >= 0) & (bx < W)
-    busy = occ[np.clip(by, 0, H - 1) // s, np.clip(bx, 0, W - 1) // s]
-    av = ((rng.random((K, nb)) < 0.8) | (rng.random((K, 1)) < 0.4)) & \
-        inside & ~busy
-    aw = np.packbits(np.pad(av, ((0, 0), (0, 160 - nb))), axis=1,
-                     bitorder="little").view(np.int32).astype(np.int64)
     meta[invalid] = 0
-    aw[invalid] = 0
     sc = 1 << (bd - 8)
     resid = rng.integers(-40 * sc, 41 * sc, (K, s, s))
-    return meta, aw, resid
+    return meta, resid
 
 
 def _random_pus(rng, H, W, L, max_mv, n_slots):
@@ -1250,7 +1227,6 @@ def random_cases(dev, b4_sizes, H=1088, W=1920):
     import torch
     from libde265_tpu_torch.feed import WAVE_CAP
     from libde265_tpu_torch.ops import intra_window as iw
-    from libde265_tpu_torch.ops.intra_wave import build_mode_tables
     rng = np.random.default_rng(2024)
 
     def t(a, dtype=None):
@@ -1336,24 +1312,15 @@ def random_cases(dev, b4_sizes, H=1088, W=1920):
     yy, xx = np.mgrid[0:H, 0:W]
     for s in (4, 8, 16, 32):
         K = WAVE_CAP[s.bit_length() - 1]
-        tabs = tuple(t(a) for a in build_mode_tables(s))
         for ibd in (8, 10):
             sc = 1 << (ibd - 8)
             plane = ((60 + yy // 2 + xx // 3) * sc +
                      rng.integers(0, 3 * sc, (H, W))) % (1 << ibd)
             padded = iw.pad_plane_for_scan(t(plane, np.int32), hp, wp)
-            meta, aw, resid = _intra_records(rng, s, K, H, W, ibd)
+            meta, resid = _intra_records(rng, s, K, H, W, ibd)
             y0p = t(meta[:, 2] + iw.PAD_T, np.int32)
             x0p = t(meta[:, 3] + iw.PAD_L, np.int32)
             valid = t((meta[:, 4] & 8) != 0)
-            rrow = np.arange(K)[::-1].copy()
-            rrow[rng.random(K) < 0.2] = -1
-            step_args = (t(np.stack([np.zeros_like(meta), meta]), np.int32),
-                         t(np.stack([np.full(K, -1), rrow]), np.int32),
-                         t(np.stack([np.zeros_like(aw), aw]), np.int32), 1,
-                         t(resid, np.int32), *tabs)
-            cases["intra_step"].append(((padded, *step_args),
-                                        {"s": s, "bit_depth": ibd}))
             nvalid = int(rng.integers(K // 2, K + 1))
             cases["border_gather"].append(((padded, y0p, x0p, nvalid),
                                            {"s": s}))
@@ -1412,8 +1379,6 @@ def plain_of(name):
         return iw.border_gather_plain
     if name == "window_scatter":
         return iw.window_scatter_plain
-    if name == "intra_step":
-        return intra_cuda.intra_step_plain
     if name == "intra_scan":
         return intra_cuda.intra_scan_plain
     if name == "intra_bins":
@@ -1637,12 +1602,10 @@ def _step_views(trace):
 
 
 def compare_intra_trace(trace, err, ncases, ms):
-    """The first I picture's intra work, four ways, each against its
+    """The first I picture's intra work, three ways, each against its
     plain version and against the decode's own planes:
       * the persistent scan: the picture's scan, one launch, from the
         planes before it;
-      * the fused step: the same scan as its step sequence (step, plane,
-        size bin), one launch each, from the planes before it;
       * B6: every step's borders gathered from the planes after the
         picture;
       * B7: every step's valid blocks, read back from the planes after the
@@ -1694,8 +1657,6 @@ def compare_intra_trace(trace, err, ncases, ms):
     runs = {    # the device time counts the named kernel, not the copies
         SCAN: (lambda: scan_all(kernel_of("intra_scan")),
                lambda: scan_all(plain_of("intra_scan")), "intra_scan_kernel"),
-        STEP: (lambda: replay(kernel_of("intra_step")),
-               lambda: replay(plain_of("intra_step")), "intra_scan_kernel"),
         B6: (lambda: gather_all(kernel_of("border_gather")),
              lambda: gather_all(plain_of("border_gather")),
              "border_gather_kernel"),
@@ -1726,7 +1687,7 @@ def compare_intra_trace(trace, err, ncases, ms):
                    measured_device_ms(kern, fam, kname)]
 
     # bytes each function must move on this picture's data.  A (step, bin)
-    # of the scan or the fused step reads every slot's meta, the valid
+    # of the scan reads every slot's meta, the valid
     # slots' residual row index and availability words, their residual
     # blocks and border samples, and stores their blocks.
     aw_words = trace.calls[0][1][2].shape[2]
@@ -1739,10 +1700,8 @@ def compare_intra_trace(trace, err, ncases, ms):
         ms[B6][3] += K * nb
         ms[B7][2] += 4 * (2 * K + 2 * nv * ss) + K
         ms[B7][3] += nv * ss
-        step = 4 * (5 * K + nv * (1 + aw_words + nb + ss) + nres * ss)
-        ms[STEP][2] += step
-        ms[SCAN][2] += step
-        ms[STEP][3] += nv * ss
+        ms[SCAN][2] += 4 * (5 * K + nv * (1 + aw_words + nb + ss) +
+                            nres * ss)
         ms[SCAN][3] += nv * ss
 
 
@@ -2598,13 +2557,11 @@ def main():
     log(f"launches in the main-path runs: {json.dumps(counts)}")
     n_pics = len(progs) + len(iprogs)
     n_i = sum(is_intra) + len(iprogs)
-    if counts[STEP] or not n_i <= counts[SCAN] <= n_pics:
-        raise AssertionError(f"intra launches: {counts[SCAN]} scans, "
-                             f"{counts[STEP]} fused steps over {n_pics} "
-                             f"pictures ({n_i} I)")
+    if not n_i <= counts[SCAN] <= n_pics:
+        raise AssertionError(f"intra launches: {counts[SCAN]} scans over "
+                             f"{n_pics} pictures ({n_i} I)")
     log(f"intra scan launches {counts[SCAN]} over {n_pics} pictures ({n_i} "
-        f"I, the rest P with or without intra blocks); fused step launches "
-        f"{counts[STEP]}")
+        f"I, the rest P with or without intra blocks)")
     n_rec = sum(len(p.intras) > 0 for p in progs + iprogs)
     if counts[BINS] != n_rec or counts[SCAN] != n_rec:
         raise AssertionError(f"{counts[BINS]} {BINS} and {counts[SCAN]} scan "
@@ -2631,9 +2588,9 @@ def main():
     for what, pp in (("P-GOP", progs), ("all-intra", iprogs)):
         rows, ring = per_picture(pp)
         for ms_, c, intra, _, rec in rows:
-            if c[SCAN] != rec or (intra and not rec) or c[STEP]:
-                raise AssertionError(f"{what}: {c[SCAN]} scan and {c[STEP]} "
-                                     f"fused step launches in a picture")
+            if c[SCAN] != rec or (intra and not rec):
+                raise AssertionError(f"{what}: {c[SCAN]} scan launches in a "
+                                     f"picture")
             if c[BINS] != rec:
                 raise AssertionError(f"{what}: {c[BINS]} {BINS} launches in "
                                      f"a picture with{'' if rec else 'out'} "
@@ -2790,10 +2747,7 @@ def main():
             f"(CUDA events; device time {dev_txt}) vs plain {p_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({nbytes} bytes) on {smi}")
     log(f"device ms per 1080p I picture: the persistent scan {ms[SCAN][5]} "
-        f"(1 launch; {SCAN_FIRST_DESIGN_MS} in its first design) vs the "
-        f"fused step {ms[STEP][5]} in this run "
-        f"({ms[STEP][4]} launches; {FUSED_STEP_MAIN_PATH_MS} when it ran the "
-        f"main path); B3 device ms per 1080p P picture {ms[B3][5]} "
+        f"(1 launch; {SCAN_FIRST_DESIGN_MS} in its first design); B3 device ms per 1080p P picture {ms[B3][5]} "
         f"({ms[B3][4]} launches) vs {B3_FIRST_DESIGN_MS} in its first "
         f"design; B5 {ms[B5][5]} ({ms[B5][4]} launches) vs "
         f"{B5_FIRST_DESIGN_MS}; B2 {ms[B2][5]} ({ms[B2][4]} launch) vs "
@@ -2817,9 +2771,8 @@ def main():
     torch.cuda.synchronize()
     c = read_counts()
     assert_bit_exact(couts, cprogs, "104x72")
-    if c[SCAN] == 0 or c[STEP]:
-        raise AssertionError(f"104x72: {c[SCAN]} scan, {c[STEP]} fused step "
-                             f"launches")
+    if c[SCAN] == 0:
+        raise AssertionError(f"104x72: {c[SCAN]} scan launches")
     log(f"104x72 (CTB 64, intra period 4): {len(cprogs)} frames bit-exact; "
         f"launches {json.dumps(c)}")
     hold_scans("104x72", cprogs, err, ncases)

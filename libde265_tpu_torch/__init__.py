@@ -5,10 +5,12 @@ It imports neither JAX nor ``libde265_tpu``: the ctypes bindings of the
 native parser and encoder (``decoder``, ``encoder``, ``_native``,
 ``profiles``) and the angle tables of ``ops.intra`` are copies of the JAX
 package's JAX-free modules.  The whole-picture program is PyTorch; its
-coefficient densify, intra super-wave step, deblocking and SAO stages are
-hand-written CUDA kernels for Hopper (``csrc/``), built with nvcc at first
-use.  The decoders run on the CUDA card unless given ``device="cpu"``; on
-CPU tensors every kernel runs its plain PyTorch version.  ``parallel``
+feed expansion, PU map, motion compensation, coefficient densify, residual
+stripes, intra scan (one persistent kernel a picture, and its records),
+deblocking and SAO stages are hand-written CUDA kernels for Hopper
+(``csrc/``), built with nvcc at first use.  The decoders run on the CUDA
+card unless given ``device="cpu"``; on CPU tensors every kernel runs its
+plain PyTorch version.  ``parallel``
 decodes over several devices (segments or tiles), the CUDA cards unless
 given a list of devices.
 

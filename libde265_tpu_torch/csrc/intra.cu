@@ -1,15 +1,14 @@
 // Intra super-wave scan on the padded plane: kernels B6 (border gather),
-// B7 (window scatter), and the scan kernel, which runs B6's gather and B7's
-// store around the prediction: launched once per picture by the persistent
-// scan (tde_intra_scan, the decode's path) or once per (step, size bin) by
-// the fused step (tde_intra_step, held against its plain version only).
+// B7 (window scatter), and the persistent scan (tde_intra_scan, one launch
+// per picture), which runs B6's gather and B7's store around the
+// prediction in every step.
 //
 // Replace the TPU kernels libde265_tpu/ops/intra_window_pallas.py
 // border_gather (B6) and window_scatter (B7), and with them the XLA math of
 // libde265_tpu/fused_decode.py _wave_body(pallas=True) between the two
 // (spec 8.4.4.2: substitution 8.4.4.2.2, filtering 8.4.4.2.3, planar, DC
-// and angular prediction 8.4.4.2.4-6) and the fori_loop over the steps of
-// _intra_scan_all_inner.
+// and angular prediction 8.4.4.2.4-6) and the JAX program's fori_loop over
+// the steps.
 //
 // The plane is int32, zero-padded so that every border sample of a block
 // lies inside it (ops/intra_window.py scan_pad_sizes); coordinates are
@@ -158,7 +157,7 @@ constexpr int kBorderWords = 132;  // a warp's borders: at most 4 * 32 + 1
 constexpr int kPhases = 5;  // clock64() stamps
 #endif
 
-// One (plane, size) bin of the scan records, as _scatter_intra_bins builds
+// One (plane, size) bin of the scan records, as tde_intra_bins writes
 // them; depth 0: no bin of this size in the plane.  The records and the
 // residual rows are 16-byte aligned and K is a multiple of 4, so that every
 // copy of the records moves 16 bytes and every residual read a quad.
@@ -177,13 +176,13 @@ struct ScanPlane {
 };
 
 // Passed by value (ops/intra_cuda.py builds it as a ctypes struct).  The
-// CTA runs steps first_step .. nsteps - 1 of its plane; stamps: [n_planes,
+// CTA runs steps 0 .. nsteps - 1 of its plane; stamps: [n_planes,
 // kMaxWarps, 5] cycles, written only by a build with TDE_SCAN_STAMPS
 // defined (scripts/scan_probe.py).
 struct ScanArgs {
   ScanPlane planes[3];
   long long* stamps;
-  int n_planes, pad_t, pad_l, aw_words, first_step;
+  int n_planes, pad_t, pad_l, aw_words;
 };
 
 // A step's valid blocks as the producer warp leaves them, bin by bin, a
@@ -549,7 +548,7 @@ __device__ __forceinline__ void run_step(const ScanPlane& P,
   }
 }
 
-// One CTA per plane walks steps first_step .. nsteps - 1.  The last warp
+// One CTA per plane walks steps 0 .. nsteps - 1.  The last warp
 // (the producer) starts the copy of step i + 2's records, then compacts
 // step i + 1's, copied a step earlier, while the other warps (the
 // consumers) run step i from the blocks it compacted one step before.  The
@@ -562,8 +561,8 @@ __global__ void __launch_bounds__(kScanThreads, 1)
 intra_scan_kernel(const __grid_constant__ ScanArgs a) {
   ScanSmem& sm = scan_smem();
   const ScanPlane& P = a.planes[blockIdx.x];
-  const int first = a.first_step, last = P.nsteps;
-  if (last <= first) return;
+  const int last = P.nsteps;
+  if (last <= 0) return;
   const int warp = threadIdx.x >> 5;
   const bool producer = warp == kScanWarps - 1;
   Stamps st;
@@ -574,23 +573,21 @@ intra_scan_kernel(const __grid_constant__ ScanArgs a) {
       sm.angle[m] = kAngle[m];
       sm.inv[m] = kInvAngle[m];
     }
-    fetch_step(P, first, a.aw_words, sm.rec[first & 1]);
+    fetch_step(P, 0, a.aw_words, sm.rec[0]);
     __pipeline_commit();
-    if (first + 1 < last)
-      fetch_step(P, first + 1, a.aw_words, sm.rec[(first + 1) & 1]);
+    if (last > 1) fetch_step(P, 1, a.aw_words, sm.rec[1]);
     __pipeline_commit();
     __pipeline_wait_prior(1);
     __syncwarp();
-    compact_step(P, first, a, sm.rec[first & 1], sm.blk[first & 1], sm);
+    compact_step(P, 0, a, sm.rec[0], sm.blk[0], sm);
     if (TDE_SCAN_ABLATE == 3) {
       __pipeline_wait_prior(0);
-      compact_step(P, first, a, sm.rec[first & 1], sm.blk[(first + 1) & 1],
-                   sm);
+      compact_step(P, 0, a, sm.rec[0], sm.blk[1], sm);
     }
   }
   __syncthreads();
   st.mark(0);
-  for (int i = first; i < last; ++i) {
+  for (int i = 0; i < last; ++i) {
     const int q = i & 1;
     if (!producer) {
       if (TDE_SCAN_ABLATE != 1 && TDE_SCAN_ABLATE != 2)
@@ -651,11 +648,11 @@ bool size_ok(int s) { return s == 4 || s == 8 || s == 16 || s == 32; }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-// The checks of both scan entry points: bin widths within the shared
-// memory, pointers present and 16-byte aligned, K a multiple of 4.
+// The scan's checks: bin widths within the shared memory, pointers present
+// and 16-byte aligned, K a multiple of 4.
 bool scan_args_ok(const ScanArgs& a) {
   if (a.n_planes < 1 || a.n_planes > 3 || a.aw_words < 1 ||
-      a.aw_words > kMaxAwWords || a.first_step < 0)
+      a.aw_words > kMaxAwWords)
     return false;
   for (int c = 0; c < a.n_planes; ++c) {
     const ScanPlane& P = a.planes[c];
@@ -672,16 +669,6 @@ bool scan_args_ok(const ScanArgs& a) {
     }
   }
   return true;
-}
-
-cudaError_t launch_scan(const ScanArgs& a, cudaStream_t stream) {
-  static const cudaError_t smem_ok = cudaFuncSetAttribute(
-      intra_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sizeof(ScanSmem));
-  if (smem_ok != cudaSuccess) return smem_ok;
-  intra_scan_kernel<<<a.n_planes, kScanThreads, sizeof(ScanSmem), stream>>>(
-      a);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -717,27 +704,17 @@ extern "C" int tde_window_scatter(void* plane, int Hp, int Wp,
 }
 
 // The whole scan of a picture in one launch: one CTA per plane walks steps
-// first_step .. nsteps-1 of its plane, each bin whose depth exceeds the
-// step.
+// 0 .. nsteps-1 of its plane, each bin whose depth exceeds the step.
 extern "C" int tde_intra_scan(const void* args, void* stream) {
   const ScanArgs& a = *(const ScanArgs*)args;
   if (!scan_args_ok(a)) return (int)cudaErrorInvalidValue;
-  return (int)launch_scan(a, (cudaStream_t)stream);
-}
-
-// One (step, bin) of plane 0 of the same arguments: bins[lg - 2], `step`
-// below its depth; the scan kernel on that step and bin alone.
-extern "C" int tde_intra_step(const void* args, int step, int lg,
-                              void* stream) {
-  ScanArgs a = *(const ScanArgs*)args;
-  if (lg < 2 || lg > 5 || step < 0 || a.n_planes != 1 || !scan_args_ok(a) ||
-      step >= a.planes[0].bins[lg - 2].depth)
-    return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < 4; ++l)
-    if (l != lg - 2) a.planes[0].bins[l].depth = 0;
-  a.first_step = step;
-  a.planes[0].nsteps = step + 1;
-  return (int)launch_scan(a, (cudaStream_t)stream);
+  static const cudaError_t smem_ok = cudaFuncSetAttribute(
+      intra_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(ScanSmem));
+  if (smem_ok != cudaSuccess) return (int)smem_ok;
+  intra_scan_kernel<<<a.n_planes, kScanThreads, sizeof(ScanSmem),
+                      (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // The scan's CTA size in this build (kScanThreads).

@@ -11,7 +11,8 @@ functions of kernels B6 and B7 in every step), deblocking (kernels B8, B9)
 and SAO (kernel B10).
 
 ``FusedDecoder.use_pallas_mc`` selects the formulation, as in the JAX
-package (which turns it on for TPU backends):
+package (which turns it on for TPU backends); the program reads it as
+``st["pallas_mc"]``, its one key:
 
 * on (the default on the card): the production program.  The feed crosses
   as its nonzero blocks and is rebuilt on the device (kernel B1); the
@@ -21,8 +22,9 @@ package (which turns it on for TPU backends):
   stripes (B5); and the program writes its decoded planes, edge-replicated,
   into the picture's own ring slot (the fused store).  The ring is updated
   in place.
-* off (the CPU tests' default): the per-cell gather formulation, with
-  ``[MAX_REFS, H, W]`` reference stacks built per picture.
+* off (the CPU tests' default, and ``ShardedTileDecoder``'s program): the
+  per-cell gather formulation, with ``[MAX_REFS, H, W]`` reference stacks
+  built per picture.
 
 The device of the tensors selects the implementation of each kernel: on a
 CUDA tensor the wrapper launches the hand-written Hopper kernel, on a CPU
@@ -79,7 +81,6 @@ from .ops import (coef_cuda, deblock_cuda, expand, intra_cuda, mc_seg,
                   sao_cuda)
 from .ops import intra_window as iw
 from .ops import transform as tx
-from .ops.intra_wave import wave_predict
 from .ops.mc import EPEL_FILTERS, QPEL_FILTERS
 from .ops.sao import edge_boundary_ok
 from .ops.transform import ccp_add
@@ -128,15 +129,14 @@ def _split(buf, layout):
     return feed
 
 
-def _expand_feed(feed, st=None):
+def _expand_feed(feed, st):
     """Expand the wire-compact feed fields: TU meta halfwords, the PU SoA
     and the per-4x4 grid word.  The coefficient stream stays CSR (cv/coff)
     for densify_bin, the intra records packed (irecp) for
-    intra_cuda.intra_bins.  With st["g4_half"] (the
-    production feed) the grid is halfwords and the per-cell PU index is
-    painted from the segment feed (kernel B2), or is -1 everywhere when the
-    stream has no inter picture; the wire PU SoA stays as "pu_wire" for the
-    segment kernels."""
+    intra_cuda.intra_bins.  With st["pallas_mc"] (the production feed) the
+    grid is halfwords and the per-cell PU index is painted from the segment
+    feed (kernel B2), or is -1 everywhere when the stream has no inter
+    picture; the wire PU SoA stays as "pu_wire" for the segment kernels."""
     for k, d in feed.items():
         if k.startswith("bin") and "tm" in d:
             # TU meta halfwords: qp7 (signed) | flags6<<7 | mid3<<13
@@ -153,7 +153,7 @@ def _expand_feed(feed, st=None):
         [(mv0 << 16) >> 16, mv0 >> 16, (mv1 << 16) >> 16, mv1 >> 16,
          meta & 3, (meta >> 2) & 63, (meta >> 8) & 63,
          (meta >> 14) & 15, (meta >> 18) & 15, sl], dim=1)
-    if st is not None and st.get("g4_half"):
+    if st["pallas_mc"]:
         # halfword grid (two cells per word): qp8 | nzc1<<8 | dbf4<<9 |
         # cu3<<13
         g4p = feed.pop("g4")
@@ -204,13 +204,13 @@ def _compiled_impl(refs_y, refs_cb, refs_cr, buf, sf_tables, st, layout,
     """The whole-picture program on the packed feed.
 
     refs_*: [MAX_REFS, h, w] int32 reference stacks, or with
-    st["fuse_store"] the DPB ring [RING_SLOTS * Hpad, Wpad] of each plane;
+    st["pallas_mc"] the DPB ring [RING_SLOTS * Hpad, Wpad] of each plane;
     buf: the uploaded int32 feed; st: the static configuration (a dict, or
     the JAX package's tuple of pairs); layout: (name, offset, shape)
     triples into buf; host_buf: the numpy buffer buf was uploaded from
     (read back from buf if None); n_intra: the picture's intra records
     (the packer's count: the first columns of the irecp field).  Returns
-    the decoded planes, followed with fuse_store by the three rings
+    the decoded planes, followed with pallas_mc by the three rings
     (updated in place)."""
     std = dict(st)
     with tracing.span("tde.unpack"):
@@ -292,9 +292,9 @@ def _frame_fn(refs_y, refs_cb, refs_cr, feed, sf_tables, st, host):
         bin_res = _residual_section(feed, sf_tables, st)
 
         # ---- inter residual add + clip ----
-        if st.get("pallas_mc"):
+        if st["pallas_mc"]:
             _add_residual_stripes(planes, bin_res, feed, st)
-        for lg in () if st.get("pallas_mc") else st["lgs"]:
+        for lg in () if st["pallas_mc"] else st["lgs"]:
             s = 1 << lg
             bf = feed[f"bin{lg}"]
             ar = torch.arange(s, device=dev)
@@ -340,7 +340,7 @@ def _frame_fn(refs_y, refs_cb, refs_cr, feed, sf_tables, st, host):
     with tracing.span("tde.sao"):
         if st["run_sao"]:
             planes = _sao_section(planes, feed, recs, skip4, st)
-    if st.get("fuse_store"):
+    if st["pallas_mc"]:
         # the fused store: each decoded plane, edge-replicated, into its
         # ring slot (in place; the MC reads of this picture are done)
         rings = [refs_y, refs_cb, refs_cr]
@@ -515,14 +515,14 @@ def _mc_section(refs_y, refs_cb, refs_cr, cell, wg, st, pb_h, pb_w,
     w = torch.where
 
     preds_l, preds_cb, preds_cr = [], [], []
-    if st.get("pallas_mc"):
+    if st["pallas_mc"]:
         preds_l = _mc_stripe_blocks(refs_y, feed, st, pb_h, pb_w, N, False)
         if has_chroma:
             preds_cb = _mc_stripe_blocks(refs_cb, feed, st, pb_h, pb_w, N,
                                          True)
             preds_cr = _mc_stripe_blocks(refs_cr, feed, st, pb_h, pb_w, N,
                                          True)
-    for l in () if st.get("pallas_mc") else (0, 1) if use_l1 else (0,):
+    for l in () if st["pallas_mc"] else (0, 1) if use_l1 else (0,):
         mvx, mvy = cell[f"mv{l}x"], cell[f"mv{l}y"]
         slot = cell[f"slot{l}"]
         preds_l.append(_mc_plane(refs_y, slot, cx + (mvx >> 2),
@@ -585,17 +585,6 @@ def _mc_section(refs_y, refs_cb, refs_cr, cell, wg, st, pb_h, pb_w,
 # intra super-wave scan
 # ---------------------------------------------------------------------------
 
-def _scatter_intra_bins(irec, irec_host, intra_bins, scap: int):
-    """Scatter the flat intra records into per-(plane, lg) scan arrays on
-    the device: {cidx: {lg: {"meta" [scap,K,5], "rrow" [scap,K],
-    "aw" [scap,K,feed.AVAIL_WORDS], "depth" (host int)}}}, each bin's depth
-    from the host copy irec_host (intra_cuda.scatter_records, the plain
-    version of intra_cuda.intra_bins)."""
-    return intra_cuda.scatter_records(
-        irec, intra_bins, scap,
-        fdp.bin_depths(irec_host[:, 8], irec_host[:, 9], irec_host[:, 6]))
-
-
 def _intra_section(planes, feed, bin_res, st, host):
     """The intra scan of a picture: the scan arrays of every size bin from
     the uploaded records (intra_cuda.intra_bins: one memset and one launch
@@ -612,27 +601,10 @@ def _intra_section(planes, feed, bin_res, st, host):
                            host["nsteps"])
 
 
-def _scan_steps(bins_by_plane, n_planes, nsteps, dev, step_fn):
-    """Replay the super-wave steps in intra_cuda.scan_order (step, then
-    plane, then size bin ascending), step_fn(c, lg, bin, i, tables) for
-    each.  The step count and each bin's depth are host values: a step
-    beyond a bin's depth for this picture is skipped without touching the
-    device."""
-    lgs_all = sorted({lg for b in bins_by_plane.values() for lg in b})
-    tables = {lg: intra_cuda.mode_tables(1 << lg, dev) for lg in lgs_all}
-    for i, c, lg in intra_cuda.scan_order(bins_by_plane, n_planes, nsteps):
-        step_fn(c, lg, bins_by_plane[c][lg], i, tables[lg])
-
-
 def _intra_scan_all(planes, bins_by_plane, bin_res, st, nsteps):
-    """The intra scan.  With st["pallas_intra"] (the decoder's setting, as
-    on the JAX device path) each plane is padded once, the whole scan runs
-    on the padded planes as one persistent kernel launch
-    (intra_cuda.intra_scan), and the planes are unpadded at the end; else
-    the unpadded gather/scatter formulation."""
-    if not st.get("pallas_intra", False):
-        return _intra_scan_all_inner(planes, bins_by_plane, bin_res, st,
-                                     nsteps)
+    """The intra scan: each plane padded once, the whole scan on the padded
+    planes (intra_cuda.intra_scan: one persistent kernel launch on the
+    card), the planes unpadded at the end."""
     shapes = [p.shape for p in planes]
     padded = [iw.pad_plane_for_scan(p, *iw.scan_pad_sizes(*p.shape))
               for p in planes]
@@ -642,69 +614,6 @@ def _intra_scan_all(planes, bins_by_plane, bin_res, st, nsteps):
     intra_cuda.intra_scan(padded, bins_by_plane, bin_res, tables, nsteps,
                           [st["bd"]] + [st["bdc"]] * (len(planes) - 1))
     return [iw.unpad_plane(p, *shp) for p, shp in zip(padded, shapes)]
-
-
-def _intra_scan_all_inner(planes, bins_by_plane, bin_res, st, nsteps):
-    """The scan on the unpadded planes (_wave_step's clamped gather and
-    scratch-element scatter)."""
-    # planes as flat buffers with a trailing scratch element for the scatter
-    shapes = [p.shape for p in planes]
-    flats = [torch.cat([p.reshape(-1), p.new_zeros(1)]) for p in planes]
-
-    def run(c, lg, v, i, tabs):
-        rrow = v["rrow"][i]
-        res = bin_res[lg]
-        resid = torch.where(
-            (rrow >= 0)[:, None, None],
-            res[rrow.long().clamp(0, res.shape[0] - 1)], 0)
-        _wave_step(flats[c], shapes[c], v["meta"][i], v["aw"][i], resid,
-                   *tabs, s=1 << lg,
-                   bit_depth=st["bd"] if c == 0 else st["bdc"])
-
-    _scan_steps(bins_by_plane, len(planes), nsteps, planes[0].device, run)
-    return [f[:-1].view(shp) for f, shp in zip(flats, shapes)]
-
-
-def _wave_body(plane, meta, aw, resid, P0, P1, WT, s: int, bit_depth: int):
-    """One super-wave step: predict + residual-add K same-size blocks and
-    write them into the plane (returns the new plane)."""
-    flat = torch.cat([plane.reshape(-1), plane.new_zeros(1)])
-    _wave_step(flat, plane.shape, meta, aw, resid, P0, P1, WT, s, bit_depth)
-    return flat[:-1].view(plane.shape)
-
-
-def _wave_step(flat, shape, meta, aw, resid, P0, P1, WT, s: int,
-               bit_depth: int):
-    """_wave_body on a flat plane buffer with a trailing scratch element,
-    updated in place: the border gather of the unpadded plane (pure
-    geometry, clamped), ops.intra_wave.wave_predict, and the store of the
-    valid blocks."""
-    Hc, Wc = shape
-    dev = flat.device
-    w = torch.where
-    y0, x0 = meta[:, 2], meta[:, 3]
-    valid = (meta[:, 4] & 8) != 0
-    n2 = 2 * s
-
-    # border geometry: k<2s left column (bottom->top), k=2s corner,
-    # k>2s top row (left->right); clamps keep unavailable positions in
-    # bounds (they are never used)
-    k = torch.arange(4 * s + 1, device=dev)
-    yy = w(k[None, :] < n2, y0[:, None] + (n2 - 1) - k[None, :],
-           y0[:, None] - 1)
-    xx = w(k[None, :] <= n2, x0[:, None] - 1, x0[:, None] + k[None, :] - n2 - 1)
-    pos = yy.clamp(0, Hc - 1).long() * Wc + xx.clamp(0, Wc - 1).long()
-    out = wave_predict(flat[pos], meta, aw, resid, P0, P1, WT, s, bit_depth)
-
-    # write the valid blocks (disjoint within a step); the rest goes to the
-    # scratch element
-    ar = torch.arange(s, device=dev)
-    rows = y0[:, None, None] + ar[None, :, None]
-    cols = x0[:, None, None] + ar[None, None, :]
-    ok = valid[:, None, None] & (rows < Hc) & (cols < Wc) & (rows >= 0) & \
-        (cols >= 0)
-    idx = w(ok, rows.long() * Wc + cols.long(), Hc * Wc)
-    flat.index_put_((idx.reshape(-1),), out.reshape(-1))
 
 
 # ---------------------------------------------------------------------------
@@ -1067,11 +976,8 @@ class FusedDecoder:
             "run_sao": bool(self.run_sao),
             "steps_cap": pk.caps["steps"] or 1,
             "intra_bins": tuple(sorted(pk.intra_lgs)),
-            "pallas_intra": True,
             "pallas_mc": pallas,
             "segk": pk.caps["segk"] or 1,
-            "fuse_store": pallas,
-            "g4_half": pallas,
             "has_ccp": pk.has_ccp,
             "has_rdpcm": pk.has_rdpcm,
         }

@@ -35,7 +35,6 @@ SIGNATURES = {
     "tde_sao_plane": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tde_border_gather": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
     "tde_window_scatter": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
-    "tde_intra_step": [_P, _I, _I, _P],
     "tde_intra_scan": [_P, _P],
     "tde_intra_bins": [_P, _P],        # (const BinArgs*, stream)
     "tde_scan_threads": [],

@@ -1,12 +1,11 @@
-"""The intra scan's kernels (``csrc/intra.cu``) and their plain PyTorch
-versions: the persistent scan ``tde_intra_scan`` (``intra_scan``, the main
-path: one launch per picture) and the fused step ``tde_intra_step``
-(``intra_step``, one launch per step and size bin, held against its plain
-version by ``chip_smoke.py`` and the `gpu` tests).
+"""The intra scan's kernel (``csrc/intra.cu``) and its plain PyTorch
+version: the persistent scan ``tde_intra_scan`` (``intra_scan``, one
+launch per picture) and ``intra_scan_plain``, the scan as its sequence of
+(step, plane, size bin) steps of ``intra_step_plain``.
 
-The persistent scan replaces the TPU program's loop over the steps
-(``fused_decode._intra_scan_all_inner`` with ``pallas_intra``: a
-``fori_loop`` of B6, the ``_wave_body`` math and B7).  A picture's steps
+The persistent scan replaces the TPU program's loop over the steps on
+its padded planes (a ``fori_loop`` of B6, the ``_wave_body`` math and B7
+in ``libde265_tpu/fused_decode.py``).  A picture's steps
 are a chain of dependent steps (528 per plane at 1080p), each of at most
 464 small blocks, so a launch per step is bound by launch latency and one
 launch per picture by the chain: a step's gather reads what the step
@@ -21,14 +20,9 @@ each block from its residual and border loads to its store within one warp
 through the spec's reference array, built once a block from the mode's
 angle (no table is read).  The records stay where
 ``intra_bins`` put them; their pointers, depths and residual rows
-go to the kernel in one argument struct by value.
-
-The fused step: the same kernel on one (plane, size, step) bin of the
-scan, one CTA, one launch per call.  It replaces the TPU program's step
-``fused_decode._wave_body(pallas=True)`` (B6, the XLA math and B7 there);
-the decode no longer launches it, so ``chip_smoke.py`` and the `gpu` tests
-hold it against its plain version (``intra_step_plain``: B6's plain gather,
-``ops.intra_wave.wave_predict``, B7's plain store).
+go to the kernel in one argument struct by value.  ``intra_step_plain``
+is one step of one bin: B6's plain gather, ``ops.intra_wave.
+wave_predict``, B7's plain store.
 
 The angular tables passed to the wrappers (``build_mode_tables``) serve the
 plain versions.  The records and residual rows must be 16-byte aligned
@@ -40,9 +34,8 @@ The scan's records: ``intra_bins`` writes every (plane, size) bin's scan
 arrays of a picture from the uploaded wire records (``feed._pack_irec``)
 with one memset and one launch of ``tde_intra_bins``
 (``csrc/intra_bins.cu``) into one int32 arena a call; its plain version,
-``intra_bins_plain``, is the composition the picture program ran before
-(the records unpacked into 15 columns, then three ``index_put_`` a bin:
-``scatter_records``).
+``intra_bins_plain``, unpacks the records into 15 columns and scatters
+them with three ``index_put_`` a bin (``scatter_records``).
 """
 from __future__ import annotations
 
@@ -57,7 +50,6 @@ from . import intra_window as iw
 from ._tensors import check, on_cuda, stream_of
 from .intra_wave import build_mode_tables, wave_predict
 
-launches = 0       # fused step launches since the last reset (chip_smoke)
 scan_launches = 0  # persistent scan launches since the last reset
 bin_launches = 0   # tde_intra_bins launches since the last reset
 
@@ -85,14 +77,7 @@ class ScanArgs(ct.Structure):
     the kernel by value."""
     _fields_ = [("planes", _ScanPlane * 3), ("stamps", ct.c_void_p),
                 ("n_planes", ct.c_int), ("pad_t", ct.c_int),
-                ("pad_l", ct.c_int), ("aw_words", ct.c_int),
-                ("first_step", ct.c_int)]
-
-
-def scan_args(n_planes: int) -> ScanArgs:
-    """Empty arguments of the scan kernels for n_planes planes."""
-    return ScanArgs(n_planes=n_planes, pad_t=iw.PAD_T, pad_l=iw.PAD_L,
-                    aw_words=0, first_step=0)
+                ("pad_l", ct.c_int), ("aw_words", ct.c_int)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,22 +87,10 @@ def mode_tables(s: int, device: torch.device):
                  for t in build_mode_tables(s))
 
 
-def _fill_plane(a, c, plane, bit_depth, dev, name):
-    """Check a padded plane and put it into a.planes[c]."""
-    check(name, dev, torch.int32, plane)
-    if plane.dim() != 2:
-        raise ValueError(f"{name}: padded planes must be 2-D")
-    P = a.planes[c]
-    P.plane = plane.data_ptr()
-    P.Hp, P.Wp = plane.shape
-    P.bit_depth = int(bit_depth)
-    return P
-
-
-def _fill_bin(a, c, lg, meta, rrow, aw, res, tabs, depth, dev, name):
+def _fill_bin(a, c, lg, meta, rrow, aw, res, tabs, depth, dev):
     """Check one (plane, size) bin's records, residual rows and tables and
     put them into a.planes[c].bins[lg - 2] with the given depth."""
-    check(name, dev, torch.int32, meta, rrow, aw, res, *tabs)
+    check("intra_scan", dev, torch.int32, meta, rrow, aw, res, *tabs)
     s = 1 << lg
     rows, K = rrow.shape
     if (lg not in (2, 3, 4, 5) or meta.shape != (rows, K, 5) or
@@ -127,14 +100,14 @@ def _fill_bin(a, c, lg, meta, rrow, aw, res, tabs, depth, dev, name):
             K % 4 or aw.shape[2] * 32 < 4 * s + 1 or
             a.aw_words not in (0, aw.shape[2]) or
             any(t.shape != (35, s * s) for t in tabs)):
-        raise ValueError(f"{name}: bad records, residual or tables of plane "
-                         f"{c}, lg {lg}")
+        raise ValueError(f"intra_scan: bad records, residual or tables of "
+                         f"plane {c}, lg {lg}")
     if any(t.data_ptr() % 16 for t in (meta, rrow, aw, res)):
-        raise ValueError(f"{name}: records and residual must be 16-byte "
+        raise ValueError(f"intra_scan: records and residual must be 16-byte "
                          f"aligned (plane {c}, lg {lg})")
     if depth > rows:
-        raise IndexError(f"{name}: depth {depth} of {rows} steps (plane {c}, "
-                         f"lg {lg})")
+        raise IndexError(f"intra_scan: depth {depth} of {rows} steps (plane "
+                         f"{c}, lg {lg})")
     a.aw_words = aw.shape[2]
     B = a.planes[c].bins[lg - 2]
     B.meta, B.rrow, B.aw = meta.data_ptr(), rrow.data_ptr(), aw.data_ptr()
@@ -182,16 +155,22 @@ def fill_scan_args(padded_planes, bins_by_plane, bin_res, tables, nsteps,
     if n_planes > 3 or len(bit_depths) < n_planes:
         raise ValueError("intra_scan: 1 to 3 planes, a bit depth each")
     total = int(np.max(nsteps)) if len(nsteps) else 0
-    a = scan_args(n_planes)
+    a = ScanArgs(n_planes=n_planes, pad_t=iw.PAD_T, pad_l=iw.PAD_L)
     work = False
     for c, plane in enumerate(padded_planes):
-        P = _fill_plane(a, c, plane, bit_depths[c], dev, "intra_scan")
+        check("intra_scan", dev, torch.int32, plane)
+        if plane.dim() != 2:
+            raise ValueError("intra_scan: padded planes must be 2-D")
+        P = a.planes[c]
+        P.plane = plane.data_ptr()
+        P.Hp, P.Wp = plane.shape
+        P.bit_depth = int(bit_depths[c])
         for lg, v in bins_by_plane.get(c, {}).items():
             depth = min(int(v["depth"]), total)
             if depth <= 0:
                 continue
             _fill_bin(a, c, lg, v["meta"], v["rrow"], v["aw"], bin_res[lg],
-                      tables[lg], depth, dev, "intra_scan")
+                      tables[lg], depth, dev)
             P.nsteps = max(P.nsteps, depth)
             work = True
     return a, work
@@ -238,33 +217,6 @@ def intra_step_plain(padded, meta_all, rrow_all, aw_all, step: int, res,
                        P0, P1, WT, s, bit_depth)
     return iw.window_scatter_plain(padded, out, y0p, x0p,
                                    (meta[:, 4] & 8) != 0, s=s)
-
-
-def intra_step(padded, meta_all, rrow_all, aw_all, step: int, res, P0, P1,
-               WT, *, s: int, bit_depth: int):
-    """intra_step_plain's update (the fused kernel on a CUDA tensor, the
-    plain version on a CPU tensor); returns padded."""
-    global launches
-    if not on_cuda("intra_step", padded):
-        return intra_step_plain(padded, meta_all, rrow_all, aw_all, step, res,
-                                P0, P1, WT, s=s, bit_depth=bit_depth)
-    if s not in (4, 8, 16, 32):
-        raise ValueError(f"intra_step: block size {s}")
-    n_steps, K = rrow_all.shape
-    if not 0 <= step < n_steps:
-        raise IndexError(f"intra_step: step {step} of {n_steps}")
-    if K == 0:
-        return padded
-    a = scan_args(1)
-    _fill_plane(a, 0, padded, bit_depth, padded.device, "intra_step")
-    lg = s.bit_length() - 1
-    _fill_bin(a, 0, lg, meta_all, rrow_all, aw_all, res, (P0, P1, WT),
-              n_steps, padded.device, "intra_step")
-    rc = _build.lib().tde_intra_step(ct.addressof(a), step, lg,
-                                     stream_of(padded))
-    _build.check_launch("tde_intra_step", rc)
-    launches += 1
-    return padded
 
 
 # ---------------------------------------------------------------------------

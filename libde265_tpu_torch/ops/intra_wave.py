@@ -6,9 +6,9 @@ Port of ``libde265_tpu/ops/intra_wave.py``.  ``build_mode_tables``,
 ``border_plan`` and ``plan_blocks`` are its host planning (numpy);
 ``ANGLE`` and ``INV_ANGLE`` come from the port's copy of ``ops/intra.py``.
 ``wave_predict`` is the math of the JAX program's ``fused_decode.
-_wave_body`` between the border gather and the store, shared by the
-port's unpadded wave step, its padded-plane (``pallas_intra``) step and
-``intra_wave_kernel``, and the plain version of the fused CUDA step.
+_wave_body`` between the border gather and the store, shared by
+``intra_wave_kernel`` and ``ops.intra_cuda.intra_step_plain`` (the plain
+version of the scan kernel's step).
 """
 from __future__ import annotations
 

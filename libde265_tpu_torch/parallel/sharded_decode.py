@@ -546,8 +546,6 @@ class ShardedTileDecoder:
             "pallas_mc": False, "segk": 1,
             "steps_cap": max(n_steps, 1),
             "intra_bins": tuple(intra_keys),
-            # the persistent scan kernel, as FusedDecoder.decode sets it
-            "pallas_intra": True,
         }
         st = std
         halo_mode = bool(prog.across_tiles) and (std["run_deblock"] or

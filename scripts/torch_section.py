@@ -350,10 +350,8 @@ def intra_host(progs, idx, batches=7, n=20):
     before it decoded first; _timed_batches): the picture's _frame_fn
     arguments captured while it decodes, its residuals from them
     (_residual_section), zero planes of its shapes before the scan; then
-    fused_decode._intra_section where the checkout has one, else the
-    statements its _frame_fn runs there (_scatter_intra_bins on the
-    unpacked records, then _intra_scan_all).  n is small: each call
-    enqueues the scan, some hundreds of us of device time at 1080p."""
+    fused_decode._intra_section.  n is small: each call enqueues the scan,
+    some hundreds of us of device time at 1080p."""
     import torch
     import libde265_tpu_torch as lt
     fdm = lt.fused_decode
@@ -378,18 +376,9 @@ def intra_host(progs, idx, batches=7, n=20):
     shapes = [(st["H"], st["W"])] + \
         ([] if st["mono"] else [(st["ch"], st["cw"])] * 2)
     planes = [torch.zeros(s, dtype=torch.int32, device=dev) for s in shapes]
-    if hasattr(fdm, "_intra_section"):
-        def run():
-            fdm._intra_section(planes, feed, bin_res, st, host)
-    else:
-        def run():
-            if st["intra_bins"]:
-                bins = fdm._scatter_intra_bins(feed["irec"], host["irec"],
-                                               st["intra_bins"],
-                                               st["steps_cap"])
-                fdm._intra_scan_all(planes, bins, bin_res, st,
-                                    host["nsteps"])
-    return _timed_batches(run, batches, n)
+    return _timed_batches(
+        lambda: fdm._intra_section(planes, feed, bin_res, st, host), batches,
+        n)
 
 
 def sections(progs, idx):

@@ -1,9 +1,11 @@
 """The port's whole-picture program and decoders, bit-exact.
 
 * frame level: the JAX program's captured per-picture inputs
-  (refs, buf, sft, st, layout) go through the port's _compiled_impl, which
-  must return the JAX program's planes, as captured (the unpadded intra
-  scan) and with st["pallas_intra"] set (the padded-plane scan);
+  (refs, buf, sft, st, layout) go through the port's _compiled_impl (its
+  one intra scan, on padded planes), which must return the JAX program's
+  planes, as captured (JAX's unpadded intra scan) and with the JAX program
+  run again on them with st["pallas_intra"] set (JAX's padded-plane scan,
+  its Pallas kernels in interpret mode);
 * decoder level: FusedDecoder(device="cpu") and PipelinedDecoder equal the
   scalar oracle (prog.planes) on P, B, 2-ref, weighted, 10-bit,
   tiled/multi-slice and all-intra GOPs;
@@ -74,13 +76,19 @@ def _jax_calls(stream):
 
 
 def _check_frame_programs(stream, pallas_intra):
+    """The port's program on each captured picture against the JAX
+    program's planes: as captured, or with pallas_intra the JAX program run
+    again with its padded-plane scan."""
     progs, calls = _jax_calls(stream)
     assert len(calls) == len(progs)
     for i, ((ry, rcb, rcr, buf, sft, st, layout), want) in enumerate(calls):
         assert not dict(st)["pallas_mc"]
         assert not dict(st)["pallas_intra"]
         if pallas_intra:
-            st = {**dict(st), "pallas_intra": True}
+            jst = tuple(sorted({**dict(st), "pallas_intra": True,
+                                "pallas_interp": True}.items()))
+            want = [np.asarray(o) for o in jfd._compiled(
+                ry, rcb, rcr, buf, sft, jst, layout)]
         got = tfd._compiled_impl(
             torch.from_numpy(ry), torch.from_numpy(rcb),
             torch.from_numpy(rcr), torch.from_numpy(buf),
@@ -101,8 +109,9 @@ def test_frame_program_matches_jax(native_build, stream):
 
 @pytest.mark.parametrize("stream", ["p-sao", "10bit"])
 def test_frame_program_pallas_intra_matches_jax(native_build, stream):
-    """The JAX planes of the unpadded scan; the JAX padded-plane scan gives
-    the same planes (tests/test_intra_window_pallas.py)."""
+    """The JAX program rerun with its padded-plane scan (B6 and B7 as
+    Pallas kernels in interpret mode), so that the pair holds the port
+    against both of JAX's scans."""
     _check_frame_programs(stream, pallas_intra=True)
 
 

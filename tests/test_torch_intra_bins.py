@@ -217,10 +217,11 @@ def test_intra_bins_plain_matches_reference(seed):
     full = (u[:, 8] == 0) & (u[:, 9] == 2) & (u[:, 6] == 0)
     assert full.sum() == WAVE_CAP[2]
     assert sorted(u[full, 7]) == list(range(WAVE_CAP[2]))
-    # the flat-record composition the tests and chip_smoke call
+    # the flat records scattered, as the tests and chip_smoke call it
     irec = intra_cuda.unpack_records(irecp[:, :n])
-    assert_bins_equal(tfd._scatter_intra_bins(torch.from_numpy(irec), irec,
-                                              bins, scap), want, "flat")
+    assert_bins_equal(intra_cuda.scatter_records(
+        torch.from_numpy(irec), bins, scap,
+        bin_depths(irec[:, 8], irec[:, 9], irec[:, 6])), want, "flat")
 
 
 @pytest.mark.parametrize("bins", [(("y", 2),),

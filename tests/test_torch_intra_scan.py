@@ -8,13 +8,14 @@ without a launch) against the records it is given; a scan whose 4x4 bins
 are full (``chip_smoke.full_bin_intra``: 256 blocks in one luma step, a
 step with no valid block) checked against the scheduler's invariant and
 decoded by the port's plain scan against the JAX program's whole scan
-(``_intra_scan_all`` with ``pallas_intra``, the Pallas kernels in
-interpret mode), at 12 bits.  The `gpu`-marked tests hold the kernel
-against ``intra_scan_plain`` on the card, one launch a scan: synthetic
-scans with all four size bins in shared steps and all three planes at 8,
-10 and 12 bits, the full 4x4 bins, a build with the smallest CTA (one
-consumer warp that runs every block of a step in turn), the fused step on the full bin's steps, and the captured scans of the 4:4:4
-CCP streams; and the chain probe that measures the scan's chain bound.
+(its padded-plane scan, the Pallas kernels in interpret mode), at 12
+bits.  The `gpu`-marked tests hold the kernel against
+``intra_scan_plain`` on the card, one launch a scan: synthetic scans with
+all four size bins in shared steps and all three planes at 8, 10 and 12
+bits, the full 4x4 bins, a build with the smallest CTA (one consumer warp
+that runs every block of a step in turn), and the captured scans of the
+4:4:4 CCP streams; and the chain probe that measures the scan's chain
+bound.
 """
 import ctypes as ct
 import sys
@@ -28,7 +29,7 @@ import jax.numpy as jnp
 from libde265_tpu import fused_decode as jfd
 
 from libde265_tpu_torch import fused_decode as tfd
-from libde265_tpu_torch.feed import WAVE_CAP
+from libde265_tpu_torch.feed import WAVE_CAP, bin_depths
 from libde265_tpu_torch.ops import _build, intra_cuda
 
 from _torch_common import REPO, cuda  # noqa: F401
@@ -47,18 +48,16 @@ def _bins(irec):
 
 def test_scan_args_fill():
     """The ctypes struct has the C layout (ScanBin 48 bytes, ScanPlane 216,
-    ScanArgs 680 on x86-64), and fill_scan_args puts every bin's records,
-    K, depth and residual rows where the kernel reads them, with the scan
-    from step 0."""
+    ScanArgs 672 on x86-64), and fill_scan_args puts every bin's records,
+    K, depth and residual rows where the kernel reads them."""
     assert ct.sizeof(intra_cuda._ScanBin) == 48
     assert ct.sizeof(intra_cuda._ScanPlane) == 216
-    assert ct.sizeof(intra_cuda.ScanArgs) == 680
+    assert ct.sizeof(intra_cuda.ScanArgs) == 672
     padded, bins, res, tables, nsteps, bds = chip_smoke.synthetic_scan_inputs(
         0, "cpu")
     a, work = intra_cuda.fill_scan_args(padded, bins, res, tables, nsteps,
                                         bds)
     assert work and a.n_planes == 3 and a.aw_words == 5
-    assert a.first_step == 0
     assert not a.stamps
     for c in range(3):
         P = a.planes[c]
@@ -109,8 +108,9 @@ def test_full_bin_schedule_reads_only_earlier_steps():
     step), fills the 4x4 bin of luma step 0 (K valid blocks) and leaves
     step 1 without a valid block, in every plane."""
     planes, irec, nsteps, _ = chip_smoke.full_bin_intra(0)
-    bins = tfd._scatter_intra_bins(torch.from_numpy(irec), irec,
-                                   _bins(irec), 3)
+    bins = intra_cuda.scatter_records(
+        torch.from_numpy(irec), _bins(irec), 3,
+        bin_depths(irec[:, 8], irec[:, 9], irec[:, 6]))
     for c, by_lg in bins.items():
         h, w = planes[c].shape
         v = by_lg[2]
@@ -144,7 +144,9 @@ def test_intra_scan_full_bin_matches_jax():
     want = jfd._intra_scan_all([jnp.asarray(p) for p in planes], jb,
                                {lg: jnp.asarray(r) for lg, r in res.items()},
                                st, jnp.asarray(nsteps))
-    tb = tfd._scatter_intra_bins(torch.from_numpy(irec), irec, bins, 3)
+    tb = intra_cuda.scatter_records(
+        torch.from_numpy(irec), bins, 3,
+        bin_depths(irec[:, 8], irec[:, 9], irec[:, 6]))
     got = tfd._intra_scan_all([torch.from_numpy(p) for p in planes], tb,
                               {lg: torch.from_numpy(r)
                                for lg, r in res.items()}, st, nsteps)
@@ -198,24 +200,6 @@ def test_intra_scan_kernel_one_consumer_warp(cuda):
         for c, (g, w_) in enumerate(zip(got, want)):
             assert torch.equal(g, w_), f"plane {c}"
         assert any(not torch.equal(g, p) for g, p in zip(got, padded))
-
-
-@pytest.mark.gpu
-def test_intra_step_kernel_full_bin(cuda):
-    """The fused step (the scan kernel on one step and bin) on each step of
-    the full luma 4x4 bin, the empty step included, in scan order."""
-    padded, bins, res, tables, _, _ = chip_smoke.scan_inputs(
-        chip_smoke.full_bin_intra(4), cuda)
-    v = bins[0][2]
-    got, want = padded[0].clone(), padded[0].clone()
-    before = intra_cuda.launches
-    for i in range(3):
-        args = (v["meta"], v["rrow"], v["aw"], i, res[2], *tables[2])
-        intra_cuda.intra_step(got, *args, s=4, bit_depth=8)
-        intra_cuda.intra_step_plain(want, *args, s=4, bit_depth=8)
-    torch.cuda.synchronize()
-    assert intra_cuda.launches == before + 3
-    assert torch.equal(got, want) and not torch.equal(got, padded[0])
 
 
 @pytest.mark.gpu

@@ -1,5 +1,6 @@
-"""Kernels B6 (border gather), B7 (window scatter) and the fused intra step
-of the port against the JAX package, bit-exact (tolerance 0: integers).
+"""Kernels B6 (border gather), B7 (window scatter) and the intra scan's
+step of the port against the JAX package, bit-exact (tolerance 0:
+integers).
 
 The JAX side runs its Pallas kernels in interpret mode on the CPU
 (``ops/intra_window_pallas``, ``fused_decode._wave_body(pallas=True)``);
@@ -8,13 +9,12 @@ super-wave step of K disjoint blocks on a 128x192 plane (K <= 16), the
 valid ones leading as the JAX gather requires; the `gpu`-marked tests
 hold each CUDA kernel against its plain version on the card.  The schedule
 tests check, on the intra records of real test streams, the invariants
-that let the fused step read borders and store blocks in one launch and
-the persistent scan run a picture's steps with a block barrier between
-them.
+that let the scan read a step's borders and store its blocks in one pass
+and run a picture's steps with a block barrier between them.
 
 The persistent scan (``intra_cuda.intra_scan``) is held against the JAX
-program's whole scan (``_intra_scan_all`` with ``pallas_intra``, the Pallas
-kernels in interpret mode) on a seeded synthetic schedule with all four
+program's whole scan (its padded-plane scan, the Pallas kernels in
+interpret mode) on a seeded synthetic schedule with all four
 luma sizes in shared steps (``chip_smoke.synthetic_intra``: no encoder
 stream here has 4x4 or 32x32 intra blocks), and on the card against its
 plain version on that schedule and on the scans captured from test streams.
@@ -33,6 +33,7 @@ from libde265_tpu.ops.intra_wave import build_mode_tables as jtables
 
 from libde265_tpu_torch import FusedDecoder
 from libde265_tpu_torch import fused_decode as tfd
+from libde265_tpu_torch.feed import bin_depths
 from libde265_tpu_torch.ops import intra_cuda
 from libde265_tpu_torch.ops import intra_window as iw
 from libde265_tpu_torch.ops.intra import ANGLE, INV_ANGLE
@@ -160,7 +161,7 @@ def test_window_scatter_matches_jax(s, partial):
     assert not np.array_equal(got.numpy(), padded)
 
 
-def _step_args(s, meta, aw, resid, device="cpu"):
+def _step_args(s, meta, aw, resid):
     """The records as one bin's scan arrays: 2 steps, the data in step 1,
     residual rows reversed and some blocks without a residual."""
     K = meta.shape[0]
@@ -172,7 +173,7 @@ def _step_args(s, meta, aw, resid, device="cpu"):
     rrow_all[1] = K - 1 - np.arange(K)
     rrow_all[1, ::5] = -1
     res = resid[::-1].copy()
-    return [t32(a, device) for a in (meta_all, rrow_all, aw_all, res)]
+    return [t32(a) for a in (meta_all, rrow_all, aw_all, res)]
 
 
 @pytest.mark.parametrize("bit_depth", [8, 10])
@@ -220,8 +221,9 @@ def _scan_bins(monkeypatch, stream):
         planes, irec, nsteps, _ = chip_smoke.synthetic_intra(0)
         bins = tuple(sorted({(("y", "cb", "cr")[c], lg)
                              for c, lg in irec[:, 8:10].tolist()}))
-        by_plane = tfd._scatter_intra_bins(torch.from_numpy(irec), irec,
-                                           bins, int(irec[:, 6].max()) + 1)
+        by_plane = intra_cuda.scatter_records(
+            torch.from_numpy(irec), bins, int(irec[:, 6].max()) + 1,
+            bin_depths(irec[:, 8], irec[:, 9], irec[:, 6]))
         return [([p.shape for p in planes],
                  {c: {lg: {"meta": v["meta"].numpy(), "aw": v["aw"].numpy(),
                            "depth": v["depth"]} for lg, v in b.items()}
@@ -366,8 +368,8 @@ def test_intra_scan_multi_size_matches_jax():
     """The whole scan of a synthetic picture whose steps share all four
     luma sizes (chroma 4 to 16): the port's padded-plane scan
     (intra_cuda.intra_scan, its plain version on the CPU) against the JAX
-    program's (_intra_scan_all with pallas_intra, the Pallas gather and
-    scatter in interpret mode), bit-exact."""
+    program's (its padded-plane scan, the Pallas gather and scatter in
+    interpret mode), bit-exact."""
     planes, bins, res, st, nsteps, irec = _synthetic_scan(8)
     by_step = {}
     for c, lg, i in irec[:, [8, 9, 6]].tolist():
@@ -377,8 +379,9 @@ def test_intra_scan_multi_size_matches_jax():
     want = jfd._intra_scan_all([jnp.asarray(p) for p in planes], jb,
                                {lg: jnp.asarray(r) for lg, r in res.items()},
                                st, jnp.asarray(nsteps))
-    tb = tfd._scatter_intra_bins(torch.from_numpy(irec), irec, bins,
-                                 st["steps_cap"])
+    tb = intra_cuda.scatter_records(
+        torch.from_numpy(irec), bins, st["steps_cap"],
+        bin_depths(irec[:, 8], irec[:, 9], irec[:, 6]))
     got = tfd._intra_scan_all([torch.from_numpy(p) for p in planes], tb,
                               {lg: torch.from_numpy(r)
                                for lg, r in res.items()}, st, nsteps)
@@ -555,20 +558,3 @@ def test_window_scatter_kernel(cuda, s):
                                    s=s)
     assert torch.equal(got, want)
 
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("bit_depth", [8, 10])
-@pytest.mark.parametrize("s", SIZES)
-def test_intra_step_kernel(cuda, s, bit_depth):
-    plane, meta, aw, resid = make_step(s, jfd.WAVE_CAP[s.bit_length() - 1],
-                                       bit_depth, seed=2, partial=True)
-    # invalid slots first: the kernel must not assume that valid ones lead
-    meta, aw, resid = meta[::-1].copy(), aw[::-1].copy(), resid[::-1].copy()
-    padded = t32(_padded_np(plane), cuda)
-    args = _step_args(s, meta, aw, resid, cuda)
-    tabs = [t32(t, cuda) for t in build_mode_tables(s)]
-    got = intra_cuda.intra_step(padded.clone(), *args[:3], 1, args[3], *tabs,
-                                s=s, bit_depth=bit_depth)
-    want = intra_cuda.intra_step_plain(padded.clone(), *args[:3], 1, args[3],
-                                       *tabs, s=s, bit_depth=bit_depth)
-    assert torch.equal(got, want)

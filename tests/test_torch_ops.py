@@ -11,7 +11,8 @@ from libde265_tpu.ops import intra_wave as jiw
 from libde265_tpu.ops import transform as jtx
 
 from libde265_tpu_torch import frame_helpers as fh
-from libde265_tpu_torch import fused_decode as tfd
+from libde265_tpu_torch.ops import intra_cuda
+from libde265_tpu_torch.ops import intra_window as tiw
 from libde265_tpu_torch.ops import transform as ttx
 from libde265_tpu_torch.ops.mc import EPEL_FILTERS, QPEL_FILTERS
 
@@ -151,10 +152,15 @@ def test_edge_params(vertical, bd):
 
 @pytest.mark.parametrize("s", [4, 8, 16, 32])
 def test_wave_body(s):
-    """One super-wave step on the plain gather/scatter path: K disjoint
-    blocks with random modes, edge filters, smoothing flags, availability
-    bits and residuals, on a smooth plane (so the 32x32 bilinear case
-    triggers) with noise."""
+    """One super-wave step: K disjoint blocks with random modes, edge
+    filters, smoothing flags, availability bits and residuals, on a smooth
+    plane (so the 32x32 bilinear case triggers) with noise.  The JAX
+    program's step on the unpadded plane (its plain gather and scatter)
+    against the port's on the padded plane (intra_step_plain on a one-step
+    record set, the scan's plain version), unpadded.  No border sample
+    outside the picture is available (8.4.4.2.2, as in every schedule):
+    the unpadded step reads a clamped sample there, the padded one the
+    padding."""
     rng = np.random.default_rng(50 + s)
     H, W, bd = 128, 160, 8
     yy, xx = np.mgrid[0:H, 0:W]
@@ -173,6 +179,13 @@ def test_wave_body(s):
                   (rng.random(K) < 0.5) * 4 | (rng.random(K) >= 0.15) * 8)
     aw = rng.integers(0, 1 << 31, (K, jfd.AVAIL_WORDS))
     aw[rng.random(K) < 0.5] = -1                 # fully available borders
+    j, n2 = np.arange(4 * s + 1), 2 * s
+    by = np.where(j < n2, meta[:, 2:3] + n2 - 1 - j, meta[:, 2:3] - 1)
+    bx = np.where(j <= n2, meta[:, 3:4] - 1, meta[:, 3:4] + j - n2 - 1)
+    bits = np.unpackbits(aw.astype(np.int32).view(np.uint8), axis=1,
+                         bitorder="little")
+    bits[:, :4 * s + 1] &= (by >= 0) & (by < H) & (bx >= 0) & (bx < W)
+    aw = np.packbits(bits, axis=1, bitorder="little").view(np.int32)
     resid = rng.integers(-40, 41, (K, s, s))
     tabs = jiw.build_mode_tables(s)
     want = jfd._wave_body(jnp.asarray(plane, jnp.int32),
@@ -181,7 +194,11 @@ def test_wave_body(s):
                           jnp.asarray(resid, jnp.int32),
                           *(jnp.asarray(t) for t in tabs), s=s, bit_depth=bd,
                           pallas=False)
-    got = tfd._wave_body(t32(plane), t32(meta), t32(aw), t32(resid),
-                         *(t32(t) for t in tabs), s=s, bit_depth=bd)
+    padded = tiw.pad_plane_for_scan(t32(plane), *tiw.scan_pad_sizes(H, W))
+    intra_cuda.intra_step_plain(padded, t32(meta[None]),
+                                t32(np.arange(K)[None]), t32(aw[None]), 0,
+                                t32(resid),
+                                *(t32(t) for t in tabs), s=s, bit_depth=bd)
+    got = tiw.unpad_plane(padded, H, W)
     _eq(got, want)
     assert not np.array_equal(np.asarray(want), plane)
