@@ -23,8 +23,8 @@ Phases (any failure raises and the script exits non-zero):
      each stream alone (host ms per picture), the native
      against the numpy packer's host ms on every picture of both streams
      (their buffers equal word for word), synced per-picture milliseconds
-     and launches (I and P; B1, B4, the deblocking edge parameters, B8
-     and B9 once each in every picture),
+     and launches (I and P; B1, B4, the residual bins, the deblocking
+     edge parameters, B8 and B9 once each in every picture),
      the synced feed pack (whichever packer ran), intra scan and
      deblocking of single pictures, the deblocking, the residual
      and the feed upload sections of the first I and P picture alone
@@ -38,12 +38,12 @@ Phases (any failure raises and the script exits non-zero):
      picture's call); exact equality; CUDA-event times of
      both, each kernel's device time (torch.profiler, profiled again while
      it sees no device time, up to five times, else the run fails) and
-     bound; B5 timed
-     on the I picture's calls as well (bins with no segment), and B1's,
-     B4's, B5's, B2's, B8's, B9's and the edge parameters' calls checked
-     to run no device work
+     bound; B5 and the residual bins timed
+     on the I picture's calls as well (B5: bins with no segment), and
+     B1's, B4's, the residual bins', B5's, B2's, B8's, B9's and the edge
+     parameters' calls checked to run no device work
      besides their kernel (intra_bins: its kernel and one memset); B4
-     (every size bin of a picture in one call)
+     (every size bin of a picture in one call) and the residual bins
      also on random bins of the P picture's sizes; B1's library
      yardstick, the one indexing call of its plain version, timed.  B8
      and B9 (both edge orientations of a plane in one launch) are also
@@ -89,8 +89,8 @@ Phases (any failure raises and the script exits non-zero):
           ms and launches per picture (the edge parameters, B8 and B9 8,
           B10 24: 3 per tile, in the tile program or in the halo filter);
           then picture 0 of each stream again with its kernel calls
-          recorded, each call of B4, the scan, the edge parameters, B8, B9
-          and B10 (the tile shapes, and the halo-padded
+          recorded, each call of B4, the residual bins, the scan, the edge
+          parameters, B8, B9 and B10 (the tile shapes, and the halo-padded
           ones with their masks) against its plain version, exact;
        c. sharded_filter_pipeline at 1088x1928 with 4 row shards, equal
           to the single-device composition of luma_pass and to that of
@@ -124,8 +124,9 @@ phases 3, 6, 7 and 8; intra_bins is checked at one launch a picture with
 intra records (a tile with them, in 7b) and none for the others in each
 of them, and every captured call of it against its plain version (phase
 4, each scan held in phases 4 and 5, phase 7b).  The last three lines of
-stdout are the kernels JSON object (all thirteen rows: B1-B10, the
-deblocking edge parameters, the persistent scan and its records),
+stdout are the kernels JSON object (all fourteen rows: B1-B10, the
+deblocking edge parameters, the persistent scan and its records, the
+residual bins),
 the card's nvidia-smi line and the result line {"ok": true, "device":
 {...}}.
 Nothing here imports JAX or the JAX package libde265_tpu.
@@ -158,6 +159,7 @@ B10 = "B10 sao_plane_fused"
 PARAMS = "B8+B9 deblock_params (edge parameters)"
 SCAN = "B6+B7 intra_scan (persistent)"
 BINS = "intra_bins (scan records)"
+RES = "residual_bins (dequant + inverse transform)"
 
 # family -> (source, TPU kernel it replaces, ops module, launch counter,
 #            integer operations per output element, counted from the source)
@@ -194,6 +196,12 @@ KERNELS = {
     BINS: ("libde265_tpu_torch/csrc/intra_bins.cu",
            "libde265_tpu/fused_decode.py:268,480 (_unpack_irec, "
            "_scatter_intra_bins, XLA)", "intra_cuda", "bin_launches", 1),
+    # no TPU kernel: the JAX program dequantises and transforms with XLA
+    # ops; a sample's least work is its dequantisation and one product of
+    # each stage with their roundings
+    RES: ("libde265_tpu_torch/csrc/coef.cu",
+          "libde265_tpu/ops/transform.py:113 (residual_batch, XLA)",
+          "coef_cuda", "transform_launches", 10),
 }
 # The separate B6 and B7 kernels, the counterparts of the JAX package's two
 # Pallas kernels: the decode runs B6's gather and B7's store inside the
@@ -211,7 +219,7 @@ HELD = {
 ALL = {**KERNELS, **HELD}
 NAMES = list(ALL)
 ROWS = [B1, B2, B3, B4, B5, B6, B7, B8, B9, PARAMS, B10, SCAN,
-        BINS]  # kernels line
+        BINS, RES]  # kernels line
 INTRA = (SCAN, B6, B7)
 
 # wrapper (module, function) -> family
@@ -220,6 +228,7 @@ WRAPPERS = {("expand", "expand_blocks"): B1,
             ("mc_seg", "mc_stripes"): B3,
             ("coef_cuda", "densify_bins"): B4,
             ("coef_cuda", "densify_bin"): B4,
+            ("coef_cuda", "residual_bins"): RES,
             ("mc_seg", "residual_stripes"): B5,
             ("deblock_cuda", "deblock_luma"): B8,
             ("deblock_cuda", "deblock_chroma"): B9,
@@ -235,7 +244,10 @@ WRAPPERS = {("expand", "expand_blocks"): B1,
             ("intra_window", "window_scatter"): B7}
 FAMILY = {fn: fam for (_, fn), fam in WRAPPERS.items()}
 MODULE = {fn: m for (m, fn) in WRAPPERS}
-INPLACE = ("window_scatter",)   # updates its first argument
+INPLACE = ("window_scatter", "residual_bins")   # update their first argument
+# the kernel whose device time a call's row counts, where a call's device
+# work holds more (the copy of an in-place kernel's input)
+DEVICE_MARK = {"residual_bins": "residual_bins_kernel"}
 # Device ms of the earlier designs (PERF.md, NVIDIA H100 80GB HBM3, 700.00
 # W), printed beside this run's: B3, B5 and B2 per 1080p P picture in their
 # first designs (B3 and B5: one CTA per segment slot of a watermark x bands
@@ -915,7 +927,8 @@ def profile_picture(progs, idx):
     busy = sum(_device_us(e) for e in ka) / 1000
     named = {e.key: (_device_us(e) / 1000, e.count) for e in ka
              if any(k in e.key for k in ("intra", "deblock_kernel",
-                                         "deblock_params", "densify")) and
+                                         "deblock_params", "densify",
+                                         "residual_bins")) and
              _device_us(e) > 0}
     return wall, busy, named
 
@@ -1202,6 +1215,49 @@ def _residual_cases(rng, t, H, W):
     return out
 
 
+def _residual_bin_cases(rng, t, sizes):
+    """residual_bins inputs at a 1080p picture's bin sizes [(N, S), ...]:
+    random levels (most zero) with an escape a TU and four padding rows a
+    bin, every TU flag mixed; 8-bit flat, and 10-bit luma with 8-bit
+    chroma (cidx shipped) and scaling lists."""
+    import torch
+    from libde265_tpu_torch.decoder import (TU_RDPCM, TU_RDPCM_VERTICAL,
+                                            TU_TQ_BYPASS, TU_TRANSFORM_SKIP,
+                                            TU_USE_DST)
+    out = []
+    for bd, bdc, scaling in ((8, 8, False), (10, 8, True)):
+        levels, bins = [], []
+        for N, S in sizes:
+            lg = S.bit_length() - 1
+            lev = rng.integers(-7, 8, N * S * S)
+            lev[rng.random(lev.shape) < 0.85] = 0
+            pos = np.sort(rng.choice(lev.size, N, replace=False))
+            want = rng.integers(8, 32768, N) * rng.choice([-1, 1], N)
+            lev[pos] = np.clip(want, -7, 7)
+            f = ((rng.random(N) < 0.1) * TU_TRANSFORM_SKIP |
+                 (rng.random(N) < 0.05) * TU_TQ_BYPASS |
+                 (rng.random(N) < 0.5) * TU_USE_DST |
+                 (rng.random(N) < 0.2) * TU_RDPCM |
+                 (rng.random(N) < 0.5) * TU_RDPCM_VERTICAL)
+            b = {"qp": t(rng.integers(0, 52 + 6 * (bd - 8), N), np.int32),
+                 "flags": t(f, np.int32),
+                 "mid": t(rng.integers(0, 6 if lg < 5 else 2, N), np.int32),
+                 "cfx": t(np.concatenate([pos, [-1] * 4]), np.int32),
+                 "cfv": t(np.concatenate([want - lev[pos], [5] * 4]),
+                          np.int32)}
+            if bd != bdc:
+                b["cidx"] = t(rng.integers(0, 3, N), np.int32)
+            levels.append(lev)
+            bins.append((lg, b))
+        buf = t(np.concatenate(levels + [[0]]), np.int32)
+        sft = tuple(t(rng.integers(1, 256, (6, 1 << lg, 1 << lg)), np.int32)
+                    for lg in (2, 3, 4, 5)) if scaling else None
+        if buf.data_ptr() % 16:
+            buf = buf.clone()
+        out.append(((buf, bins, bd, bdc, sft), {}))
+    return out
+
+
 def _expand_cases(rng, t):
     """B1 inputs of a 1080p-sized feed: about 40% of its 1024-word blocks
     nonzero, the compact rows rounded up to 256 with zero rows."""
@@ -1246,6 +1302,7 @@ def random_cases(dev, b4_sizes, H=1088, W=1920):
         cases["densify_bins"].append(((bins,), {}))
     cv, coff = _csr_bin(rng, 2048, 8)
     cases["densify_bin"].append(((t(cv), t(coff)), {"N": 2048, "S": 8}))
+    cases["residual_bins"] = _residual_bin_cases(rng, t, b4_sizes)
 
     def luma_params(a, b):
         return (t(rng.integers(0, 3, (a, b)).astype(np.int32)),
@@ -1357,6 +1414,8 @@ def plain_of(name):
                                                                   N, S)
     if name == "densify_bins":
         return coef_cuda.densify_bins_plain
+    if name == "residual_bins":
+        return coef_cuda.residual_bins_plain
     if name in ("deblock_luma", "deblock_chroma"):
         return getattr(deblock_cuda, f"{name}_plain")
     if name == "deblock_params":
@@ -1449,6 +1508,15 @@ def _work(name, args, kw, out):
             4 * (N + 1) + 4 * min(cv.shape[0], (int(coff[N]) + 3) // 4)
             for cv, coff, N, _ in bins)
         nout = buf.numel()
+    elif name == "residual_bins":
+        # each sample's level read and its residual written; a TU's four
+        # fields and each escape read once
+        buf, bins = args[0], args[1]
+        nout = buf.numel() - 1
+        nbytes = 8 * nout + sum(
+            4 * sum(bf[k].numel() for k in ("qp", "flags", "mid", "cidx",
+                                             "cfx", "cfv") if k in bf)
+            for _, bf in bins)
     elif name == "deblock_params":
         # every input grid read once and the arena written once (the
         # chroma no_p / no_q are views of the luma ones)
@@ -1543,7 +1611,7 @@ def time_calls(timed):
             t_k2 = median_ms(lambda: _call(k, name, args, kw))
             t_p2 = median_ms(lambda: _call(p, name, args, kw))
             t_dev = measured_device_ms(lambda: _call(k, name, args, kw),
-                                       name)
+                                       name, DEVICE_MARK.get(name))
             out = _call(k, name, args, kw)
             row = ms.setdefault(fam, [0.0, 0.0, 0, 0, 0, 0.0])
             row[5] = _add(row[5], t_dev)
@@ -1884,10 +1952,11 @@ def many_refs_phase(smi):
                                      f"{json.dumps(c)}")
         else:
             ms_f.append(ms)
-            if c[BINS] != (len(p.intras) > 0):
+            if c[BINS] != (len(p.intras) > 0) or c[RES] != c[B4]:
                 raise AssertionError(f"fused picture {i}: {c[BINS]} {BINS} "
                                      f"launches, {len(p.intras)} intra "
-                                     f"records")
+                                     f"records; {c[RES]} {RES} and "
+                                     f"{c[B4]} B4 launches")
     if fd.pipeline_pictures != len(routed):
         raise AssertionError(f"{fd.pipeline_pictures} routed pictures")
     assert_bit_exact([out], progs[-1:], "many references, last picture")
@@ -2040,6 +2109,9 @@ def gop_parallel_phase(smi):
     if counts[BINS] != n_rec:
         raise AssertionError(f"GOP-parallel: {counts[BINS]} {BINS} launches "
                              f"over {n_rec} pictures with intra records")
+    if counts[RES] != counts[B4]:
+        raise AssertionError(f"GOP-parallel: {counts[RES]} {RES} launches, "
+                             f"{counts[B4]} of B4")
     log(f"GOP-parallel k=4 (main path): {frames} frames bit-exact, "
         f"{len(segs)} segments on entries {list(range(len(segs)))}"
         f"{f' (entry {len(segs)} idle)' if len(segs) < 4 else ''}, "
@@ -2182,23 +2254,24 @@ def sharded_kernel_check(prog, launches, what, smi):
     for name, c in cap.items():
         calls[FAMILY[name]] = calls.get(FAMILY[name], 0) + len(c)
     if calls != launches or \
-            set(calls) != {B4, SCAN, BINS, PARAMS, B8, B9, B10}:
+            set(calls) != {B4, RES, SCAN, BINS, PARAMS, B8, B9, B10}:
         raise AssertionError(f"tile-sharded ({what}) picture 0: calls "
                              f"{json.dumps(calls)}, main-path launches "
                              f"{json.dumps(launches)}")
     shapes = {name: sorted({tuple(a[0].shape) for a, _ in c})
               for name, c in cap.items()
-              if name not in ("densify_bins", "intra_scan", "intra_bins",
-                              "deblock_params")}
+              if name not in ("densify_bins", "residual_bins", "intra_scan",
+                              "intra_bins", "deblock_params")}
     shapes["intra_scan"] = sorted({tuple(p.shape) for a, _ in
                                    cap.get("intra_scan", []) for p in a[0]})
     err, ncases = compare_kernels([(f"tile-sharded ({what}) picture 0",
                                     cap)])
     del cap
     torch.cuda.synchronize()
-    held = (B4, SCAN, BINS, PARAMS, B8, B9, B10)
-    log(f"tile-sharded ({what}) picture 0: B4, the scan, its records, the "
-        f"edge parameters, B8, B9 and B10 equal to their plain versions on "
+    held = (B4, RES, SCAN, BINS, PARAMS, B8, B9, B10)
+    log(f"tile-sharded ({what}) picture 0: B4, the residual bins, the scan, "
+        f"its records, the edge parameters, B8, B9 and B10 equal to their "
+        f"plain versions on "
         f"its "
         f"calls (tolerance 0): {json.dumps({n: ncases[n] for n in held})}; "
         f"plane shapes {json.dumps(shapes)}; checked in "
@@ -2599,9 +2672,10 @@ def main():
                 raise AssertionError(f"{what}: {c[PARAMS]} edge-parameter, "
                                      f"{c[B8]} B8 and {c[B9]} B9 launches "
                                      f"in a picture, not 1 / 1 / 1")
-            if c[B4] != 1 or c[B1] != 1:
-                raise AssertionError(f"{what}: {c[B4]} B4 and {c[B1]} B1 "
-                                     f"launches in a picture, not 1 / 1")
+            if c[B4] != 1 or c[B1] != 1 or c[RES] != 1:
+                raise AssertionError(f"{what}: {c[B4]} B4, {c[B1]} B1 and "
+                                     f"{c[RES]} {RES} launches in a "
+                                     f"picture, not 1 / 1 / 1")
         for kind, want in (("I", True), ("P", False)):
             sel = [r for r in rows if r[2] == want]
             if not sel:
@@ -2637,7 +2711,8 @@ def main():
         if busy > 0:
             log(f"profiled {what} picture {idx}: wall {wall:.2f} ms, device "
                 f"busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}; "
-                f"intra, deblocking and B4 kernels (device ms, launches) "
+                f"intra, deblocking, B4 and residual bins kernels (device "
+                f"ms, launches) "
                 f"{json.dumps(named)} on {smi}")
         else:
             log(f"profiled {what} picture {idx}: the profiler saw no device "
@@ -2680,12 +2755,22 @@ def main():
         f"{b5_i[5]} ms) vs plain {b5_i[1]:.4f} ms, bound "
         f"{_bound(B5, b5_i[2], b5_i[3])[0]:.4f} ms ({b5_i[2]} bytes) on "
         f"{smi}")
+    # the residual bins on the I picture's call too (the P picture's is
+    # the kernels line's row)
+    res_i = time_calls({"residual_bins":
+                        caps[first_i]["residual_bins"]})[RES]
+    log(f"{RES} on 1080p I picture {first_i} ({res_i[4]} call, "
+        f"{res_i[3]} samples): {res_i[0]:.4f} ms (CUDA events, with the "
+        f"copy of its input; device time {res_i[5]} ms) vs plain "
+        f"{res_i[1]:.4f} ms, bound {_bound(RES, res_i[2], res_i[3])[0]:.4f} "
+        f"ms ({res_i[2]} bytes) on {smi}")
     # B5, B2, B8, B9, B4 and B1 allocate their outputs unfilled and copy
-    # nothing, the edge parameters write a kept arena: the kernel must be
-    # the only device work of a call; the scan's records clear their kept
-    # arena first (one memset)
+    # nothing, the edge parameters write a kept arena, the residual bins
+    # write over their input: the kernel must be the only device work of
+    # a call; the scan's records clear their kept arena first (one memset)
     for name, marks in (("expand_blocks", ("expand_kernel",)),
                         ("densify_bins", ("densify_bins_kernel",)),
+                        ("residual_bins", ("residual_bins_kernel",)),
                         ("residual_stripes", ("residual_kernel",)),
                         ("paint_pu_idx", ("paint_kernel",)),
                         ("deblock_luma", ("deblock_kernel",)),
@@ -2694,7 +2779,9 @@ def main():
                         ("intra_bins", ("intra_bins_kernel", "Memset"))):
         args, kw = (caps[first_i] if name == "intra_bins" else
                     caps[first_p])[name][0]
-        seen = device_kernels(lambda: _call(kernel_of(name), name, args, kw))
+        if name in INPLACE:     # the input's copy is not the call's work
+            args = (args[0].clone(), *args[1:])
+        seen = device_kernels(lambda: kernel_of(name)(*args, **kw))
         if not seen:
             log(f"{name}: the profiler saw no device time; its device "
                 f"work not checked")

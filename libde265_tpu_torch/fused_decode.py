@@ -4,7 +4,8 @@
 Per picture the host packs one int32 feed buffer plus a layout (``feed``),
 uploads it, and ``_compiled_impl`` runs the picture in the order of the JAX
 program: per-cell PU gather, motion compensation, coefficient densify
-(kernel B4), dequant + IDCT, residual add, PCM, the intra super-wave scan
+(kernel B4), dequant + inverse transform (one kernel for every size bin),
+residual add, PCM, the intra super-wave scan
 on padded planes (its records placed by one kernel from the uploaded wire
 records, then one persistent kernel per picture, running the device
 functions of kernels B6 and B7 in every step), deblocking (kernels B8, B9)
@@ -69,8 +70,7 @@ import torch
 
 from . import _native, tracing
 
-from .decoder import (TU_RDPCM, TU_RDPCM_VERTICAL, TU_TQ_BYPASS,
-                      TU_TRANSFORM_SKIP, TU_USE_DST, FrameProgramData)
+from .decoder import FrameProgramData
 
 from . import feed as fdp
 from . import pipeline
@@ -80,7 +80,6 @@ from .frame_helpers import (_cells_to_plane, _mc_plane, _merge,
 from .ops import (coef_cuda, deblock_cuda, expand, intra_cuda, mc_seg,
                   sao_cuda)
 from .ops import intra_window as iw
-from .ops import transform as tx
 from .ops.mc import EPEL_FILTERS, QPEL_FILTERS
 from .ops.sao import edge_boundary_ok
 from .ops.transform import ccp_add
@@ -353,71 +352,27 @@ def _frame_fn(refs_y, refs_cb, refs_cr, feed, sf_tables, st, host):
     return tuple(planes)
 
 
-def _add_escapes(buf, off: int, n: int, cfx, cfv):
-    """Escape corrections of one bin, in place: buf[off + cfx] += cfv where
-    0 <= cfx < n (the bin's levels start at buf[off]); the rest, padding
-    rows (cfx = -1) among them, go to buf's last element, the scratch.  The
-    4-bit wire value clamps a level to +-7; cfv is the full-precision
-    delta.  Positions are distinct within a bin and integer adds commute,
-    so this equals the JAX program's `levels.at[...].add(cfv,
-    mode="drop")`."""
-    ok = (cfx >= 0) & (cfx < n)
-    buf.index_add_(0, torch.where(ok, cfx + off, buf.shape[0] - 1), cfv)
-
-
-def _rdpcm(base, flags, tskip, bypass):
-    """RDPCM of one bin: the residual of a TU flagged TU_RDPCM with
-    transform skip or bypass becomes its prefix sums down the columns
-    (TU_RDPCM_VERTICAL) or along the rows."""
-    rd = ((flags & TU_RDPCM) != 0) & (tskip | bypass)
-    vert = (flags & TU_RDPCM_VERTICAL) != 0
-    cs = torch.where(vert[:, None, None],
-                     torch.cumsum(base, 1, dtype=torch.int32),
-                     torch.cumsum(base, 2, dtype=torch.int32))
-    return torch.where(rd[:, None, None], cs, base)
-
-
 def _residual_section(feed, sf_tables, st):
     """Residuals of every TU size bin of a picture: {lg: [N, S, S] int32},
     the levels themselves where a TU bypasses transform and quantisation.
-    B4 densifies all bins in one launch into one buffer, the escape
-    corrections add into it in place, then dequant + inverse transform,
-    RDPCM (st["has_rdpcm"]) and cross-component prediction
-    (st["has_ccp"])."""
+    B4 densifies all bins in one launch into one buffer, and one launch of
+    coef_cuda.residual_bins turns the levels into residuals there (escape
+    corrections, dequant + inverse transform, RDPCM); then cross-component
+    prediction (st["has_ccp"])."""
     lgs = st["lgs"]
     if not lgs:
         return {}
-    bfs = [feed[f"bin{lg}"] for lg in lgs]
-    buf, views = coef_cuda.densify_bins(
+    bins = [(lg, feed[f"bin{lg}"]) for lg in lgs]
+    buf, _ = coef_cuda.densify_bins(
         [(bf["cv"], bf["coff"], bf["qp"].shape[0], 1 << lg)
-         for lg, bf in zip(lgs, bfs)])
+         for lg, bf in bins])
     bd = st["bd"]
-    bin_res, off = {}, 0
-    for lg, bf, levels in zip(lgs, bfs, views):
-        if "cfx" in bf:
-            _add_escapes(buf, off, levels.numel(), bf["cfx"], bf["cfv"])
-        off += levels.numel()
-        flags = bf["flags"]
-        tskip = (flags & TU_TRANSFORM_SKIP) != 0
-        use_dst = (flags & TU_USE_DST) != 0
-        bypass = (flags & TU_TQ_BYPASS) != 0
-        kw = {}
-        if st["scaling"]:
-            kw = dict(sf=sf_tables[lg - 2][bf["mid"].long()], qp=bf["qp"])
-        # each TU at its channel's depth: the feed ships the channels
-        # (bin{lg}.cidx) only where the two depths differ (ROADMAP C8)
-        res = tx.residual_batch_by_channel(
-            levels, tx.qp_to_fact(bf["qp"]), tskip, use_dst, lg, bd,
-            st["bdc"] if "cidx" in bf else bd,
-            bf["cidx"] != 0 if "cidx" in bf else None, **kw)
-        base = torch.where(bypass[:, None, None], levels, res)
-        if st.get("has_rdpcm"):
-            base = _rdpcm(base, flags, tskip, bypass)
-        bin_res[lg] = base
+    bin_res = dict(zip(lgs, coef_cuda.residual_bins(
+        buf, bins, bd, st["bdc"], sf_tables if st["scaling"] else None)))
     if st.get("has_ccp"):
         # the partners are luma TUs of the same bin, which CCP leaves as
         # they are, so the bins take their terms in any order
-        for lg, bf in zip(lgs, bfs):
+        for lg, bf in bins:
             bin_res[lg] = ccp_add(bin_res[lg], bf["ccp_row"],
                                   bf["ccp_scale"], bd, st["bdc"])
     return bin_res
@@ -979,7 +934,6 @@ class FusedDecoder:
             "pallas_mc": pallas,
             "segk": pk.caps["segk"] or 1,
             "has_ccp": pk.has_ccp,
-            "has_rdpcm": pk.has_rdpcm,
         }
         if not pallas:
             with tracing.span("tde.upload"):

@@ -29,6 +29,7 @@ _P, _I, _L = ct.c_void_p, ct.c_int, ct.c_longlong
 # entry point -> argument types (pointers and the stream as void*)
 SIGNATURES = {
     "tde_densify_bins": [_P, _P],      # (const Args*, stream)
+    "tde_residual_bins": [_P, _P],     # (const ResArgs*, stream)
     "tde_deblock_luma": [_P, _P],      # (const Args*, stream)
     "tde_deblock_chroma": [_P, _P],
     "tde_deblock_params": [_P, _P],

@@ -17,7 +17,9 @@ device ms, device operations by name), and the deblocking section's host
 time alone (`deblock_host`: perf_counter_ns over batches of calls, no
 profiler and no synchronisation inside a batch: the time the calling
 thread spends to enqueue the section, which is what paces a decode whose
-card is mostly idle), and the same of its intra section (`intra_host`:
+card is mostly idle), the same of its residual section (`residual_host`:
+B4, then the dequant + inverse transform of every size bin, on the
+picture's own feed) and of its intra section (`intra_host`:
 the records into the scan's per-bin arrays and the scan, on the picture's
 own feed, residuals and plane shapes, as the measured checkout runs the
 section).  A checkout whose picture program
@@ -295,26 +297,27 @@ def residual_inline(fdm, feed, sf_tables, st):
     return bin_res
 
 
-def deblock_host(progs, idx, batches=7, n=100):
-    """Host us per call of fused_decode._deblock_section on picture idx's
-    arguments (the pictures before it decoded first; _timed_batches)."""
+def section_host(progs, idx, name, batches=7, n=100):
+    """Host us per call of fused_decode.<name> (a section of the picture
+    program) on picture idx's arguments (the pictures before it decoded
+    first; _timed_batches)."""
     import libde265_tpu_torch as lt
     fdm = lt.fused_decode
     fd = lt.FusedDecoder()
     fd.plan_stream(progs)
     for p in progs[:idx]:
         fd.decode(p)
-    section, seen = fdm._deblock_section, []
+    section, seen = getattr(fdm, name), []
 
     def record(*a, **k):
         seen.append((a, k))
         return section(*a, **k)
 
-    fdm._deblock_section = record
+    setattr(fdm, name, record)
     try:
         fd.decode(progs[idx])
     finally:
-        fdm._deblock_section = section
+        setattr(fdm, name, section)
     a, k = seen[0]
     return _timed_batches(lambda: section(*a, **k), batches, n)
 
@@ -440,10 +443,12 @@ def main():
                               "ops": sorted(([v, k[:100]] for k, v in
                                              ops.items()), reverse=True),
                               "card": smi}), flush=True)
-        print(json.dumps({"root": str(root), "section": "deblock_host",
-                          "picture": f"{what} {idx}",
-                          **deblock_host(progs, idx), "card": smi}),
-              flush=True)
+        for sec, name in (("deblock_host", "_deblock_section"),
+                          ("residual_host", "_residual_section")):
+            print(json.dumps({"root": str(root), "section": sec,
+                              "picture": f"{what} {idx}",
+                              **section_host(progs, idx, name),
+                              "card": smi}), flush=True)
         print(json.dumps({"root": str(root), "section": "intra_host",
                           "picture": f"{what} {idx}",
                           "intra_records": len(progs[idx].intras),
