@@ -1,0 +1,6 @@
+"""decode_other_ms.nofps: decode_other_ms (metrics/decode_other_ms.py) in the cells that report fps
+per layer only (fps.unbounded), where it names device_mem_gib, the
+end-to-end metric they keep besides setup_s."""
+from gbench import spec
+
+read = spec.reader("decode_other_ms").read

@@ -1,0 +1,6 @@
+"""overlap_ratio.nofps: overlap_ratio (metrics/overlap_ratio.py) in the cells that report fps
+per layer only (fps.unbounded), where it names device_mem_gib, the
+end-to-end metric they keep besides setup_s."""
+from gbench import spec
+
+read = spec.reader("overlap_ratio").read

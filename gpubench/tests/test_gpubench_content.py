@@ -24,7 +24,7 @@ def _lib():
 
 
 def test_scene_is_a_function_of_the_seed():
-    p = _tiny.tiny_config("t", "b1080_ra")["content"]
+    p = _tiny.tiny_config("b1080_ra")["content"]
     a, b = Scene(2**33 + 5, 64, 128, 8, p), Scene(2**33 + 5, 64, 128, 8, p)
     c = Scene(2**33 + 6, 64, 128, 8, p)
     for t in (0, 3, 7):
@@ -36,11 +36,11 @@ def test_scene_is_a_function_of_the_seed():
     assert not np.array_equal(a.frame(0)[0], a.frame(1)[0])
 
 
-@pytest.mark.parametrize("like", ["b1080_ra", "b1080_ai"])
+@pytest.mark.parametrize("like", _tiny.configs())
 def test_encode_is_a_function_of_the_seed(tmp_path, like):
     """The segments come from the configuration's content seed; the run's
     seed draws only their order, so every seed decodes the same work."""
-    cfg = _tiny.tiny_config("t_" + like, like)
+    cfg = _tiny.tiny_config(like)
     lib = _lib()
     one = streams.clip_for(tmp_path / "a", lib, cfg, 77, workers=2)
     two = streams.clip_for(tmp_path / "b", lib, cfg, 77, workers=2)
@@ -66,7 +66,7 @@ def test_reference_agrees_with_the_native_decoder(tmp_path):
     """The hashes the encoder wrote, against the planes of the repository's
     scalar decoder (a second witness of the expected pictures)."""
     from libde265_tpu_torch import Decoder
-    cfg = _tiny.tiny_config("t_ra", "b1080_ra")
+    cfg = _tiny.tiny_config("b1080_ra")
     clip = streams.clip_for(tmp_path, _lib(), cfg, 5, workers=2)
     hashes = reference.picture_hashes(clip.data)
     dec = Decoder(keep_programs=True)

@@ -34,6 +34,26 @@ def test_fps_is_every_picture_over_all_the_window():
         stats.rate(1, 0)
 
 
+COPIES = [m["name"] for m in _tiny.bench()["per_layer"]
+          if m["name"].endswith(_tiny.NOFPS) or m["name"] == "fps.unbounded"]
+
+
+@pytest.mark.parametrize("name", COPIES)
+def test_a_copy_reads_with_its_base_reader(name):
+    """fps.unbounded is fps, and each .nofps metric its base, read in the
+    cells that report fps per layer only: the copy's read is the base
+    file's, and the copy lists none of the base's cells."""
+    base = "fps" if name == "fps.unbounded" else name.removesuffix(
+        _tiny.NOFPS)
+    read = spec.reader(name).read
+    assert read.__globals__["__file__"] == spec.reader(base).__file__
+    r = _run(window=dict(wall_s=2.5, pictures=96))
+    assert read(r) == spec.reader(base).read(r)
+    b = _tiny.bench()
+    ms = {m["name"]: m for m in b["end_to_end"] + b["per_layer"]}
+    assert not set(ms[name]["workloads"]) & set(ms[base]["workloads"])
+
+
 def test_requests_of_each_kind():
     """A clip request is the whole clip every time; segment requests come
     in rounds that each visit every segment once, in seeded orders."""
@@ -101,7 +121,7 @@ def test_idle_share_from_the_union_of_intervals():
 def programs(tmp_path_factory):
     from libde265_tpu_torch import Decoder, _native
     lib = Path(_native.build_tree()) / "libtde265.so"
-    cfg = _tiny.tiny_config("t_ra", "b1080_ra")
+    cfg = _tiny.tiny_config("b1080_ra")
     clip = streams.clip_for(tmp_path_factory.mktemp("c"), lib, cfg, 9,
                             workers=2)
     dec = Decoder(parse_only=True, keep_programs=True)

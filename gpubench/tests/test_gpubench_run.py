@@ -1,6 +1,8 @@
-"""Whole runs of the harness at a tiny size: on the CPU with the look for
-a card skipped (the program as it is comes out correct; the control and
-each planted fault come out not correct), and on the card (marked gpu)."""
+"""Whole runs of the harness: on the CPU, every cell of BENCHMARK.json
+through its tiny copy (``_tiny.make_root``) with the look for a card
+skipped (the program as it is comes out correct; the control and each
+planted fault come out not correct), and on the card (marked gpu) every
+cell as it stands."""
 import json
 import subprocess
 import sys
@@ -15,11 +17,11 @@ sys.path.insert(0, str(BENCH))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import run  # noqa: E402
-from gbench import faults  # noqa: E402
+from gbench import faults, spec  # noqa: E402
 
 import _tiny  # noqa: E402
 
-CELLS = ["tiny_ra.stream", "tiny_ai.stream", "tiny_ra.segments"]
+CELLS = [_tiny.tiny(c) for c in _tiny.cells()]
 SEED = 2**31 + 4242
 
 
@@ -48,10 +50,16 @@ def test_program_is_correct(root, cell):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_traced_run_reports_per_layer_metrics(root, cell):
+    """The line holds only the cell's per-layer metrics, and each of them
+    that the host's clock gives (the probe's) reads above 0; the profiled
+    ones need a card."""
     res, _ = _run(root, cell, trace=True)
     assert res["correct"]
-    assert "setup_s" not in res["metrics"]
-    assert {"parse_ms", "gop_parse_share"} & set(res["metrics"])
+    listed = {m["name"]: m for m, _ in spec.cell(root, cell, True).metrics}
+    got = {k: v["value"] for k, v in res["metrics"].items()}
+    assert set(got) <= set(listed)
+    host = [n for n, m in listed.items() if m["source"] == "host_clock"]
+    assert host and all(got.get(n, 0) > 0 for n in host), got
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -74,7 +82,7 @@ def test_exits_without_a_card_or_a_program(tmp_path):
     shutil.copytree(BENCH, tmp_path / "gpubench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     r = subprocess.run([sys.executable, "gpubench/run.py", "--workload",
-                        "b1080_ra.stream", "--seed", "1", "--seconds", "1",
+                        _tiny.cells()[0], "--seed", "1", "--seconds", "1",
                         "--trace", "0"], cwd=tmp_path, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode != 0
@@ -89,8 +97,7 @@ def card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cell", ["b1080_ra.stream", "b1080_ai.stream",
-                                  "b1080_ra.segments"])
+@pytest.mark.parametrize("cell", _tiny.cells())
 def test_cell_on_the_card(card, cell):
     r = subprocess.run([sys.executable, "gpubench/run.py", "--workload",
                         cell, "--seed", str(SEED), "--seconds", "3",

@@ -13,8 +13,11 @@ BENCH = Path(__file__).resolve().parent.parent
 ROOT = BENCH.parent
 sys.path.insert(0, str(BENCH))
 sys.path.insert(1, str(ROOT))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from gbench import driver, profiling, spec  # noqa: E402
+
+import _tiny  # noqa: E402
 
 SPANS = {"pack_ms": "tde.pack", "upload_ms": "tde.upload",
          "unpack_ms": "tde.unpack", "gather_ms": "tde.gather",
@@ -22,7 +25,6 @@ SPANS = {"pack_ms": "tde.pack", "upload_ms": "tde.upload",
          "intra_ms": "tde.intra", "deblock_ms": "tde.deblock",
          "sao_ms": "tde.sao", "decode_other_ms": "tde.decode",
          "parse_wait_ms": "tde.stream.wait", "parse_busy_ms": "tde.parse"}
-ALL = ["b1080_ra.stream", "b1080_ai.stream", "b1080_ra.segments"]
 
 
 def _run(trace_data):
@@ -67,14 +69,22 @@ def profiled():
 
 
 def test_entries_of_the_span_metrics():
+    """Each span metric is listed by one rule (``_tiny.span_workloads``):
+    the cells that report its rate (fps, or fps.unbounded for a ``.nofps``
+    copy), less the parse spans' in GopParallelDecoder's cells; it moves
+    fps, and a copy what fps.unbounded moves."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     ms = {m["name"]: m for m in bench["per_layer"]
           if m["source"] == "program_span"}
-    assert set(ms) == set(SPANS)
+    assert {n.removesuffix(_tiny.NOFPS) for n in ms} == set(SPANS)
+    layer = {m["name"]: m for m in bench["per_layer"]}
     for name, m in ms.items():
-        assert (m["unit"], m["better"], m["moves"]) == ("ms", "lower", "fps")
-        want = ALL[:2] if name.startswith("parse_") else ALL
-        assert m["workloads"] == want
+        rate = _tiny.rate_metric(name)
+        moves = layer[rate]["moves"] if rate in layer else rate
+        assert (m["unit"], m["better"], m["moves"]) == ("ms", "lower", moves)
+        want = _tiny.span_workloads(bench, name)
+        assert sorted(m["workloads"]) == sorted(want), name
+        assert len(set(m["workloads"])) == len(m["workloads"])
 
 
 @pytest.mark.parametrize("name", list(SPANS))

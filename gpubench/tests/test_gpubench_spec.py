@@ -156,16 +156,64 @@ def test_no_stray_files(bench):
     assert {p.name for p in (BENCH / "configs").glob("*.json")} == cfgs
 
 
-def test_throwaway_config_from_a_temporary_directory(tmp_path):
-    """A configuration and cells added by new files and entries only."""
+def test_tiny_copies_follow_one_rule(tmp_path):
+    """Every configuration and cell gets a tiny copy in the temporary
+    directory only, shrunk by one rule, and every metric that lists a cell
+    lists its copy."""
     root = _tiny.make_root(tmp_path)
-    cell = spec.cell(root, "tiny_ra.stream", False)
-    assert cell.config["name"] == "tiny_ra"
-    assert cell.config["width"] == _tiny.TINY["width"]
-    assert not (BENCH / "configs" / "tiny_ra.json").exists()
-    names = [m["name"] for m, _ in cell.metrics]
-    assert names == ["fps", "device_mem_gib", "setup_s"]
-    per_layer = [m["name"] for m, _ in
-                 spec.cell(root, "tiny_ai.stream", True).metrics]
-    assert "intra_scan_roofline" in per_layer
-    assert "mc_roofline" not in per_layer
+    real = _tiny.bench()
+    tiny = _tiny.bench(root)
+    for c in real["configs"]:
+        cfg = json.loads((ROOT / c["file"]).read_text())
+        t = spec.load_json(root / f"gpubench/configs/{_tiny.tiny(c['name'])}"
+                           ".json")
+        ctb = cfg["encoder"]["ctb-size"]
+        assert t["width"] % ctb == 0 and t["height"] % ctb == 0
+        assert t["height"] // ctb >= 2 and t["width"] // ctb >= 2
+        assert t["width"] * t["height"] <= 50_000
+        assert t["segments"] == max(2, min(cfg["segments"], 3))
+        assert t["pictures_per_segment"] == min(cfg["pictures_per_segment"],
+                                                8)
+        for key in ("encoder", "content", "bit_depth", "content_seed"):
+            assert t[key] == cfg[key], key
+        assert not (BENCH / "configs" / f"{t['name']}.json").exists()
+    by_name = {w["name"]: w for w in tiny["workloads"]}
+    for w in real["workloads"]:
+        t = by_name[_tiny.tiny(w["name"])]
+        assert (t["config"], t["traffic"], t["chips"]) == (
+            _tiny.tiny(w["config"]), w["traffic"], w["chips"])
+    for m in tiny["end_to_end"] + tiny["per_layer"]:
+        for w in m.get("workloads", []):
+            if not w.startswith("tiny_"):
+                assert _tiny.tiny(w) in m["workloads"], (m["name"], w)
+
+
+def test_throwaway_config_from_a_temporary_directory(tmp_path):
+    """A made-up configuration (b1080_ai's file under a new name, sign
+    hiding off) and its cell, added by new files and entries only, run
+    whole on the CPU through their tiny copy: correct, and not correct
+    with a planted fault."""
+    import time
+
+    import torch
+
+    import run
+    from gbench import faults
+    torch.set_num_threads(2)
+    src = _tiny.copy_root(tmp_path / "src")
+    cell = _tiny.made_up(src, "b1080_ai.stream")
+    assert not (BENCH / "configs" / "made_up_b1080_ai.json").exists()
+    root = _tiny.make_root(tmp_path / "root", src=src)
+    cfg = spec.cell(root, _tiny.tiny(cell), False).config
+    assert cfg["name"] == "tiny_made_up_b1080_ai"
+    assert cfg["encoder"]["sign-hiding"] is False
+
+    def one(fault=None):
+        return run.run_cell(root, _tiny.tiny(cell), 2**31 + 77, 1.0, False,
+                            "cpu", time.perf_counter(), fault=fault,
+                            log=lambda *a: None)[0]
+    res = one()
+    assert res["correct"], res["checks"]
+    assert {"fps", "setup_s"} <= set(res["metrics"])
+    bad = one(faults.FAULTS["altered"])
+    assert not bad["correct"] and bad["checks"]["mismatched"]["value"] > 0

@@ -1,15 +1,14 @@
 """The 4K configuration ``uhd2160_ra``, its cell ``uhd2160_ra.stream`` and
 the one reader it adds, ``parse_threads`` (the counter the program notes
 on ``tde.request``); the cell reports the accepted per-layer metrics of
-the stream cells, listed in their ``workloads``.  A tiny copy of the
-configuration (192x128, CTB 32, so 4 WPP rows) runs whole on the CPU, in
-a throwaway checkout of its own (``_tiny.make_root`` maps only the 1080p
-cells)."""
+the stream cells, listed in their ``workloads``.  A clip of its own
+(192x128, CTB 32, so 4 WPP rows) holds WPP rows and QP groups; the cell's
+whole runs, with the control and the faults, are those of
+``test_gpubench_run.py`` over its tiny copy."""
 import copy
 import json
 import os
 import sys
-import time
 import types
 from pathlib import Path
 
@@ -20,8 +19,7 @@ ROOT = BENCH.parent
 sys.path.insert(0, str(BENCH))
 sys.path.insert(1, str(ROOT))
 
-import run  # noqa: E402
-from gbench import driver, faults, profiling, spec, streams  # noqa: E402
+from gbench import driver, profiling, spec, streams  # noqa: E402
 
 CELL = "uhd2160_ra.stream"
 SEED = 2**31 + 1818
@@ -44,25 +42,6 @@ def tiny_uhd() -> dict:
     return cfg
 
 
-def make_root(tmp: Path) -> Path:
-    """tmp holding BENCHMARK.json with the cell tiny_uhd.stream added
-    wherever uhd2160_ra.stream is named, and its configuration file."""
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    path = "gpubench/configs/tiny_uhd.json"
-    (tmp / "gpubench" / "configs").mkdir(parents=True, exist_ok=True)
-    (tmp / path).write_text(json.dumps(tiny_uhd()))
-    bench["configs"].append({"name": "tiny_uhd", "source": "test",
-                             "file": path, "reduced": [], "why": "test"})
-    bench["workloads"].append({"name": "tiny_uhd.stream",
-                               "config": "tiny_uhd", "traffic": "stream",
-                               "chips": 1, "why": "test"})
-    for m in bench["end_to_end"] + bench["per_layer"]:
-        if CELL in m.get("workloads", []):
-            m["workloads"].append("tiny_uhd.stream")
-    (tmp / "BENCHMARK.json").write_text(json.dumps(bench))
-    return tmp
-
-
 def test_configuration_and_cell_load_by_name():
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     entry = {c["name"]: c for c in bench["configs"]}["uhd2160_ra"]
@@ -81,7 +60,7 @@ def test_configuration_and_cell_load_by_name():
     assert (enc["qp"], enc["ctb-size"], enc["num-refs"]) == (27, 64, 3)
     assert cfg["segments"] * cfg["pictures_per_segment"] == 64
     assert cell.workload["chips"] == 1 and cell.mix["entry"] == "pipelined"
-    assert [m["name"] for m, _ in cell.metrics] == ["fps", "device_mem_gib",
+    assert [m["name"] for m, _ in cell.metrics] == ["device_mem_gib",
                                                     "setup_s"]
 
 
@@ -96,7 +75,8 @@ def test_cell_reports_the_stream_metrics_and_parse_threads():
     m = {x["name"]: x for x in bench["per_layer"]}["parse_threads"]
     assert m == {"name": "parse_threads", "unit": "threads",
                  "better": "higher", "source": "program_counter",
-                 "layer": "decoder", "moves": "fps", "workloads": [CELL]}
+                 "layer": "decoder", "moves": "device_mem_gib",
+                 "workloads": [CELL]}
 
 
 def test_parse_threads_reads_nothing_without_its_counter(monkeypatch):
@@ -168,39 +148,3 @@ def test_span_readers_under_a_cpu_profile(clip, monkeypatch, cpus, workers):
             assert spec.reader(name).read(r) >= 0, name
     finally:
         tracing.clear()
-
-
-@pytest.fixture(scope="module")
-def root(tmp_path_factory):
-    import torch
-    torch.set_num_threads(2)
-    return make_root(tmp_path_factory.mktemp("root"))
-
-
-def _cell(root, trace=False, fault=None):
-    return run.run_cell(root, "tiny_uhd.stream", SEED, 1.0, trace, "cpu",
-                        time.perf_counter(), fault=fault,
-                        log=lambda *a: None)[0]
-
-
-def test_tiny_cell_runs_whole(root):
-    """run_cell over the tiny copy on the CPU: correct, and the traced
-    run's line holds the probe's metrics (the profiled ones, spans and
-    parse_threads among them, need a card)."""
-    for trace in (False, True):
-        res = _cell(root, trace)
-        assert res["correct"], res["checks"]
-        if trace:
-            got = {k: v["value"] for k, v in res["metrics"].items()}
-            assert got["decode_ms"] > 0 and got["parse_ms"] > 0
-            assert got["overlap_ratio"] > 0
-        else:
-            assert {"fps", "setup_s"} <= set(res["metrics"])
-
-
-@pytest.mark.parametrize("fault", ["sao_off", "stale", "altered", "half"])
-def test_control_and_faults_are_not_correct(root, fault):
-    res = _cell(root, fault=faults.FAULTS[fault])
-    assert not res["correct"], (fault, res["checks"])
-    c = res["checks"]
-    assert c["missing" if fault == "half" else "mismatched"]["value"] > 0
